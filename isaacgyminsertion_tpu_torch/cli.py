@@ -1,12 +1,21 @@
-"""Command line (`key=value` overrides): the teacher-eval path of the
-reference's train.py.
+"""Command line (`key=value` overrides): the eval paths of the reference's
+train.py.
 
     python -m isaacgyminsertion_tpu_torch.cli train.algo=PPO test=True \
         checkpoint=checkpoints/teacher_r2b/best_success num_envs=1024
 
-prints `Success Rate: x`. The eval runs `num_envs` envs (`eval_envs=` sets
-it separately), on CUDA unless `device=cpu` is given. PPO training
-(`test=False`) is not ported yet.
+evaluates a teacher, and
+
+    python -m isaacgyminsertion_tpu_torch.cli train.algo=ExtrinsicAdapt test=True \
+        checkpoint=<teacher ckpt> student_checkpoint=<student ckpt> task.env.numEnvs=256 \
+        task.external_cam.external_cam=True task.external_cam.seg_cam=True \
+        task.external_cam.pcl_cam=True train.ppo.pcl_info=True train.ppo.obs_info=True \
+        train.ppo.only_bc=True
+
+a student on the sensors-on env (`noise_study=True` adds the point-cloud
+noise sweep, `output=<dir>` is where it writes). Both print `Success Rate: x`.
+The eval runs `num_envs` envs (`eval_envs=` sets it separately), on CUDA
+unless `device=cpu` is given. Training (`test=False`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ import dataclasses
 import sys
 from typing import Any
 
+from .algo.ext_adapt import DAggerConfig
 from .envs.config import default_task_config
 
 # reference yaml name → dataclass path in TaskConfig (None: the env count)
@@ -23,6 +33,7 @@ _KEYMAP = {
     "num_envs": None,
     "task.rl.max_episode_length": "rl.max_episode_length",
     "task.env.tactile": "env.tactile",
+    "task.env.render_capacity": "env.render_capacity",
     "task.external_cam.external_cam": "env.external_cam",
     "task.external_cam.depth_cam": "env.depth_cam",
     "task.external_cam.seg_cam": "env.seg_cam",
@@ -86,6 +97,23 @@ _KEYMAP = {
 }
 
 
+# reference yaml name → field of DAggerConfig (None: accepted for recipe
+# compatibility, no effect)
+_DAGGER_KEYMAP = {
+    "train.ppo.tactile_info": "use_tactile",
+    "train.ppo.img_info": "use_img",
+    "train.ppo.seg_info": "use_seg",
+    "train.ppo.pcl_info": "use_pcl",
+    "train.ppo.obs_info": "use_obs",
+    "train.ppo.only_bc": "only_bc",
+    "offline_train.only_bc": "only_bc",
+    "offline_train.from_offline": None,
+    "train.ppo.use_priv": "use_priv",
+    "train.ppo.latent_loss_coef": "latent_loss_coef",
+    "train.ppo.action_z_weight": "action_z_weight",
+}
+
+
 def _parse_value(v: str) -> Any:
     if v.lower() in ("true", "false"):
         return v.lower() == "true"
@@ -109,10 +137,12 @@ def _set_path(obj, path: str, value):
 
 
 def parse_args(argv: list[str] | None = None) -> dict:
-    """Returns {task, algo, num_envs, eval_envs, test, checkpoint, seed, device}."""
+    """Returns {task, dagger, algo, num_envs, eval_envs, test, checkpoint,
+    student_checkpoint, noise_study, output, seed, device}."""
     argv = sys.argv[1:] if argv is None else argv
-    out = dict(task=default_task_config(), algo="PPO", num_envs=128, eval_envs=None, test=False,
-               checkpoint="", seed=1234, device=None)
+    out = dict(task=default_task_config(), dagger=DAggerConfig(), algo="PPO", num_envs=128,
+               eval_envs=None, test=False, checkpoint="", student_checkpoint="",
+               noise_study=False, output="outputs/run", seed=1234, device=None)
     for arg in argv:
         if "=" not in arg:
             continue
@@ -130,6 +160,17 @@ def parse_args(argv: list[str] | None = None) -> dict:
             out["eval_envs"] = int(val)
         elif k == "device":
             out["device"] = str(val)
+        elif k == "student_checkpoint":
+            out["student_checkpoint"] = str(val)
+        elif k == "noise_study":
+            out["noise_study"] = bool(val)
+        elif k in ("output", "train.ppo.output_name"):
+            out["output"] = str(val)
+        elif k in _DAGGER_KEYMAP:
+            if _DAGGER_KEYMAP[k] is not None:
+                out["dagger"] = _set_path(out["dagger"], _DAGGER_KEYMAP[k], val)
+        elif k.startswith("dagger."):
+            out["dagger"] = _set_path(out["dagger"], k[len("dagger."):], val)
         elif k == "task":
             pass  # single task family; accepted for recipe compatibility
         elif k in _KEYMAP:
@@ -146,24 +187,35 @@ def parse_args(argv: list[str] | None = None) -> dict:
 
 
 def main(argv: list[str] | None = None):
-    """Run the teacher eval; returns the success rate."""
+    """Run the teacher or the student eval; returns the success rate."""
     args = parse_args(argv)
-    if args["algo"] != "PPO":
-        raise SystemExit(f"algo {args['algo']!r} is not ported yet (the port runs the PPO teacher eval)")
+    if args["algo"] not in ("PPO", "ExtrinsicAdapt"):
+        raise SystemExit(f"unknown algo {args['algo']!r}")
     if not args["test"]:
-        raise SystemExit("PPO training is the next slice of the port; run with test=True "
-                         "checkpoint=<teacher ckpt> to evaluate a trained teacher")
+        raise SystemExit(f"{args['algo']} training is not ported yet (the next slices of the "
+                         "port); run with test=True checkpoint=<teacher ckpt> to evaluate")
     if not args["checkpoint"]:
         raise SystemExit("test=True needs checkpoint=<teacher ckpt>")
 
-    from .algo.trainer import TeacherEvaluator
+    from .algo.trainer import StudentEvaluator, TeacherEvaluator
     from .assets import build_subassembly_set
     from .physics.robot import build_kuka_openhand
 
-    runner = TeacherEvaluator(args["task"], build_kuka_openhand(), build_subassembly_set(),
-                              args["eval_envs"] or args["num_envs"], args["checkpoint"],
+    model, subs = build_kuka_openhand(), build_subassembly_set()
+    n_envs = args["eval_envs"] or args["num_envs"]
+    if args["algo"] == "PPO":
+        runner = TeacherEvaluator(args["task"], model, subs, n_envs, args["checkpoint"],
+                                  device=args["device"])
+        return runner.test(seed=args["seed"])
+    if not args["student_checkpoint"]:
+        raise SystemExit("ExtrinsicAdapt test=True needs student_checkpoint=<student ckpt>")
+    runner = StudentEvaluator(args["task"], args["dagger"], model, subs, n_envs, args["checkpoint"],
+                              args["student_checkpoint"], out_dir=args["output"],
                               device=args["device"])
-    return runner.test(seed=args["seed"])
+    sr = runner.test(seed=args["seed"])
+    if args["noise_study"]:
+        runner.test_log()
+    return sr
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""FactoryTaskInsertionTactile, state-only: the insertion MDP over [N, ...] tensors.
+"""FactoryTaskInsertionTactile: the insertion MDP over [N, ...] tensors.
 
-Port of the state-only path of `isaacgyminsertion_tpu/envs/insertion.py`:
+Port of `isaacgyminsertion_tpu/envs/insertion.py`:
 
     state', out = step(cfg, model, subs, state, policy_actions, generator)
 
@@ -15,9 +15,14 @@ with noise, the arm placed by IK so the fingertip frame sits over the plug,
 the plug hanging in the grasp with pose noise, and the hand closed onto it by
 a per-finger bisection on the predicted gel force.
 
-The sensor branches (tactile, cameras, point clouds, contact ground truth)
-are not ported yet: `reset_all` and `step` raise NotImplementedError when a
-sensor flag is set.
+The sensor modalities (tactile images, external depth/seg camera, point
+clouds, contact ground truth) are rendered after the physics, decimated and
+delayed per env, and kept in FIFO queues. The image queues are stored in
+float16 (pure [0, 1]-ranged frame storage; the ~1e-3 quantization sits far
+below the 0.01 pixel noise) and handed out as float32. With
+`env.render_capacity < 1` only the env rows that consume a fresh frame this
+step are rendered (`_render_sel`). The CycleGAN sim→real hook on tactile
+frames (`gan_params`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,12 +41,15 @@ from ..physics.contact import GEL_STIFFNESS, PATCH_POINTS, MaterialParams, finge
 from ..physics.engine import ControlInput, PhysicsParams, PhysicsState
 from ..physics.kinematics import forward_kinematics, point_jacobian, site_pose
 from ..physics.robot import HAND_JOINT_IDX, SITE_FINGERTIP_CENTERED, RobotModel
+from ..sensors import camera as cam_mod
+from ..sensors import contact_gt as cgt_mod
+from ..sensors import pcl as pcl_mod
+from ..sensors import tactile as tact_mod
 from . import dr as dr_mod
 from .config import TaskConfig
 
 ACTION_QUEUE_LEN = 16  # action_latency_max 15 + current
-SENSOR_FLAGS = ("tactile", "external_cam", "depth_cam", "seg_cam", "pcl_cam", "compute_contact_gt")
-# the reference's sensor frame queues ([N, 0] when the modality is off)
+# sensor frame queues ([N, 0] when the modality is off); the first three are float16
 SENSOR_QUEUES = ("tactile_queue", "img_queue", "seg_queue", "pcl_queue", "contact_queue")
 
 
@@ -88,6 +96,16 @@ class EnvState(NamedTuple):
     far_from_goal_buf: torch.Tensor
     progress_change_tracker: torch.Tensor  # [N]
     ep_reward: torch.Tensor        # [N]
+    # sensor FIFO queues (zero-sized [N, 0] when the modality is off)
+    tactile_queue: torch.Tensor    # [N, Th, F, H, W, C] f16
+    img_queue: torch.Tensor        # [N, Ih, H, W] f16
+    seg_queue: torch.Tensor        # [N, Ih, H, W] f16 (float of int ids)
+    pcl_queue: torch.Tensor        # [N, Ih, P, 3]
+    contact_queue: torch.Tensor    # [N, Ch, P]
+    tactile_refresh_rate: torch.Tensor    # [N]
+    tactile_refresh_offset: torch.Tensor  # [N]
+    img_refresh_rate: torch.Tensor        # [N]
+    img_refresh_offset: torch.Tensor      # [N]
 
 
 class StepOutput(NamedTuple):
@@ -98,6 +116,12 @@ class StepOutput(NamedTuple):
     reset: torch.Tensor        # [N] bool
     timeout: torch.Tensor      # [N] bool
     extras: dict
+    # sensor modalities, float32; zero-sized when the modality is off
+    tactile: torch.Tensor      # [N, Th, F, H, W, C]
+    img: torch.Tensor          # [N, Ih, H, W]
+    seg: torch.Tensor          # [N, Ih, H, W]
+    pcl: torch.Tensor          # [N, Ih, P, 3]
+    contacts: torch.Tensor     # [N, Ch, P]
 
 
 # --------------------------------------------------------------------------- #
@@ -107,13 +131,6 @@ class StepOutput(NamedTuple):
 
 def make_generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=torch.device(device)).manual_seed(int(seed))
-
-
-def _check_state_only(cfg: TaskConfig):
-    on = [f for f in SENSOR_FLAGS if getattr(cfg.env, f)]
-    if on:
-        raise NotImplementedError(
-            f"sensor modalities {on} are not ported yet; the port runs the state-only env")
 
 
 def _f32(vals, device):
@@ -331,10 +348,31 @@ def _pose_in_frame(pos, quat, frame_t, frame_q):
     return rot.tf_combine(inv_q, inv_t, quat, pos)
 
 
+def _sensor_queues(cfg: TaskConfig, subs: SubassemblySet, n: int, dev) -> dict:
+    """Zeroed sensor queues for the modalities that are on ([N, 0] otherwise)."""
+    e = cfg.env
+    tcfg, ccfg = tact_mod.TactileConfig(), cam_mod.CameraConfig()
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
+    zh = lambda *shape: torch.zeros(shape, dtype=torch.float16, device=dev)
+    n_pcl = ((e.num_points if e.include_plug_pcl else 0)
+             + (e.num_points_socket if e.merge_socket_pcl else 0)
+             + (e.num_points_goal if e.merge_goal_pcl else 0))
+    return dict(
+        tactile_queue=zh(n, e.tactile_history_len, 3, tcfg.height, tcfg.width, tcfg.num_channels)
+        if e.tactile else zh(n, 0),
+        img_queue=zh(n, e.img_history_len, ccfg.height, ccfg.width)
+        if (e.external_cam and e.depth_cam) else zh(n, 0),
+        seg_queue=zh(n, e.img_history_len, ccfg.height, ccfg.width)
+        if (e.external_cam and e.seg_cam) else zh(n, 0),
+        pcl_queue=z(n, e.img_history_len, n_pcl, 3) if (e.external_cam and e.pcl_cam) else z(n, 0),
+        contact_queue=z(n, e.ft_history_len, subs.dense_points.shape[1])
+        if e.compute_contact_gt else z(n, 0),
+    )
+
+
 def reset_all(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, generator: torch.Generator,
               n: int) -> EnvState:
     """A fresh EnvState for the full batch, on the generator's device."""
-    _check_state_only(cfg)
     gen = generator
     dev = gen.device
     sub_idx = torch.randint(0, len(subs.names), (n,), generator=gen, device=dev)
@@ -386,6 +424,11 @@ def reset_all(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, generato
         far_from_goal_buf=zb(),
         progress_change_tracker=zi(),
         ep_reward=z(),
+        **_sensor_queues(cfg, subs, n, dev),
+        tactile_refresh_rate=randint(1, e.max_skip_tactile + 1),
+        tactile_refresh_offset=randint(0, e.max_skip_tactile),
+        img_refresh_rate=randint(1, e.max_skip_img + 1),
+        img_refresh_offset=randint(0, e.max_skip_img),
     )
 
 
@@ -456,6 +499,14 @@ def _reset_idx(cfg, model, subs, state: EnvState, mask: torch.Tensor,
         far_from_goal_buf=state.far_from_goal_buf & ~mask,
         progress_change_tracker=torch.where(mask, 0, state.progress_change_tracker),
         ep_reward=torch.where(mask, 0.0, state.ep_reward),
+        **{k: (w(torch.zeros_like(getattr(state, k)), getattr(state, k))
+               if getattr(state, k).numel() else getattr(state, k)) for k in SENSOR_QUEUES},
+        tactile_refresh_rate=torch.where(mask, randint(1, e.max_skip_tactile + 1),
+                                         state.tactile_refresh_rate),
+        tactile_refresh_offset=torch.where(mask, randint(0, e.max_skip_tactile),
+                                           state.tactile_refresh_offset),
+        img_refresh_rate=torch.where(mask, randint(1, e.max_skip_img + 1), state.img_refresh_rate),
+        img_refresh_offset=torch.where(mask, randint(0, e.max_skip_img), state.img_refresh_offset),
     )
 
 
@@ -511,9 +562,10 @@ def priv_info_of(cfg: TaskConfig, model: RobotModel, state: EnvState) -> torch.T
 
 
 def step(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, state: EnvState,
-         policy_actions: torch.Tensor, generator: torch.Generator):
+         policy_actions: torch.Tensor, generator: torch.Generator, gan_params=None):
     """One control step of the full env batch → (state', StepOutput)."""
-    _check_state_only(cfg)
+    if gan_params is not None:
+        raise NotImplementedError("the CycleGAN sim→real hook on tactile frames is not ported yet")
     gen = generator
     n = policy_actions.shape[0]
     dev = policy_actions.device
@@ -627,6 +679,10 @@ def step(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, state: EnvSta
     finger_forces_ema = ((1 - ema) * torch.linalg.norm(phys.tip_forces, dim=-1)
                          + ema * state.finger_forces_ema)
 
+    # ---------------- sensor modalities (decimation + delay)
+    queues, render_overflow = _sensor_step(cfg, model, subs, state, phys, fk2, ftc_t2, frame,
+                                           progress, finger_forces_ema, gen)
+
     # ---------------- observation staleness (decimation + delay)
     refresh = ((frame + state.plug_pose_refresh_offset) % state.plug_pose_refresh_rate) == 0
     obs_plug_pos_freq = _where(refresh, phys.plug_pos, state.obs_plug_pos_freq)
@@ -691,6 +747,9 @@ def step(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, state: EnvSta
         "degrasp": degrasp.float(),
         "ep_reward": ep_reward,
         "action_moving_average_scalar": torch.full((n,), act_ma, device=dev),
+        # render-on-demand starvation: env rows that wanted a fresh sensor
+        # frame this step but were past render_capacity (0 when capacity = 1)
+        "render_overflow": render_overflow.expand(n),
     }
 
     new_state = state._replace(
@@ -702,11 +761,142 @@ def step(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, state: EnvSta
         obs_plug_quat=obs_plug_quat, finger_forces_ema=finger_forces_ema, rb_force=rbf,
         reset_buf=reset, success_reset_buf=success, timeout_reset_buf=timeout | reset,
         degrasp_buf=degrasp, far_from_goal_buf=far, progress_change_tracker=tracker,
-        ep_reward=ep_reward,
+        ep_reward=ep_reward, **queues,
     )
     out = StepOutput(obs=obs_queue, student_obs=obs_stud_queue, priv_info=priv, rew=rew,
-                     reset=reset, timeout=timeout, extras=extras)
+                     reset=reset, timeout=timeout, extras=extras,
+                     # the image queues are stored f16; consumers see f32
+                     tactile=queues["tactile_queue"].float(), img=queues["img_queue"].float(),
+                     seg=queues["seg_queue"].float(), pcl=queues["pcl_queue"],
+                     contacts=queues["contact_queue"])
     return new_state, out
+
+
+def _push(latest, queue):
+    """FIFO push: the newest frame enters at slot 0."""
+    return torch.cat([latest[:, None], queue[:, :-1]], dim=1)
+
+
+def _sensor_step(cfg, model, subs, state: EnvState, phys: PhysicsState, fk2, ftc_t2, frame,
+                 progress, finger_forces_ema, gen):
+    """Render the sensor modalities that are on and push them into their
+    queues → (the five queues, dropped consumers this step [scalar]).
+
+    Render-on-demand (`env.render_capacity` < 1): the decimation and delay
+    pipeline discards most frames, so instead of rendering all N envs and
+    masking, the ceil(capacity·N) env rows that consume a fresh frame this
+    step (lowest priority rank first) are gathered, rendered and scattered
+    back. Consumers past capacity keep their stale frame one more step; the
+    tie-break rotates with global_step so a burst of equal-rank rows drains
+    across consecutive steps instead of starving the high indices."""
+    e = cfg.env
+    params = state.params
+    n = progress.shape[0]
+    dev = progress.device
+    queues = {k: getattr(state, k) for k in SENSOR_QUEUES}
+    render_overflow = torch.zeros((), device=dev)
+    use_sel = 0.0 < e.render_capacity < 1.0
+    rand = lambda: torch.rand((n,), generator=gen, device=dev)
+
+    def render_sel(prio):
+        k = min(n, max(8, -(-int(e.render_capacity * n) // 8) * 8))
+        # int64 arithmetic: the reference's int32 product wraps after ~271k steps
+        rotate = (torch.arange(n, device=dev) + state.global_step * 7919) % n
+        return torch.argsort(prio.long() * n + rotate, stable=True)[:k]
+
+    def overflow_of(sel, consume):
+        in_sel = torch.zeros((n,), dtype=torch.bool, device=dev)
+        in_sel[sel] = True
+        return torch.sum((consume & ~in_sel).float())
+
+    def latest_of(sel, upd, new_rows, prev):
+        """Frames at queue slot 0 after this step: fresh where `upd`, else kept."""
+        if sel is None:
+            return _where(upd, new_rows, prev)
+        out = prev.clone()
+        out[sel] = _where(upd[sel], new_rows, prev[sel])
+        return out
+
+    if e.tactile:
+        t_refresh = ((frame + state.tactile_refresh_offset) % state.tactile_refresh_rate) == 0
+        t_upd = t_refresh & (rand() > e.tactile_delay_prob)
+        tip_q3, tip_t3 = engine.fingertip_poses(model, fk2)
+        # the gel-scene plug is scaled by the asset's scale column
+        psc = params.plug_scale
+        sel_t = render_sel(torch.where(t_upd, 0, 1)) if use_sel else None
+        if use_sel:
+            render_overflow = render_overflow + overflow_of(sel_t, t_upd)
+        gt = (lambda x: x[sel_t]) if use_sel else (lambda x: x)
+        timg = tact_mod.render_tactile(
+            tact_mod.TactileConfig(), gt(tip_q3), gt(tip_t3), gt(phys.plug_quat), gt(phys.plug_pos),
+            gt(params.kind_onehot), gt(params.plug_hx * psc), gt(params.plug_hy * psc),
+            gt(params.plug_length * psc), gt(finger_forces_ema), generator=gen, noise_std=0.01)
+        tq = state.tactile_queue
+        queues["tactile_queue"] = _push(latest_of(sel_t, t_upd, timg.to(tq.dtype), tq[:, 0]), tq)
+    if e.external_cam:
+        ccfg = cam_mod.CameraConfig()
+        i_refresh = ((frame + state.img_refresh_offset) % state.img_refresh_rate) == 0
+        initial = progress < 10
+        i_upd = i_refresh & (initial | (rand() > e.img_delay_prob))
+        s_upd = i_refresh & (initial | (rand() > e.seg_delay_prob))
+        # one gathered row set serves depth+seg+pcl (all consume on i_refresh);
+        # `initial` rows rank first: they must render at least once inside the
+        # 10-step post-reset window for the frozen socket-pcl capture
+        sel_c = render_sel(torch.where(initial, 0, torch.where(i_refresh, 1, 2))) if use_sel else None
+        if use_sel:
+            render_overflow = render_overflow + overflow_of(sel_c, initial | i_upd | s_upd)
+        gc = (lambda x: x[sel_c]) if use_sel else (lambda x: x)
+        # the descending hand occludes the scene in the depth/seg frames: proxy
+        # it as 3 fingertip spheres (12 mm) + a wrist→palm capsule (32 mm) that
+        # ends at the palm, 55% of the way from the fingertips to the wrist, so
+        # the grasped plug reads through the finger gaps
+        cam_tips = engine.fingertip_poses(model, fk2)[1]
+        cam_wrist = fk2.body_t[..., 6, :]
+        cam_palm = ftc_t2 + 0.55 * (cam_wrist - ftc_t2)
+        depth_n, seg_im, depth_raw = cam_mod.render_depth_seg(
+            ccfg, gc(phys.plug_quat), gc(phys.plug_pos), gc(params.socket_quat),
+            gc(params.socket_pos), gc(params.kind_onehot), gc(params.plug_hx), gc(params.plug_hy),
+            gc(params.plug_length), gc(params.hole_hx), gc(params.hole_hy),
+            gc(params.socket_height), gc(params.table_height), generator=gen,
+            tip_pos=gc(cam_tips), wrist_pos=gc(cam_wrist), hand_pos=gc(cam_palm),
+            tip_radius=0.012, hand_radius=0.032)
+        nr = seg_im.shape[0]
+        if e.depth_cam:
+            iq = state.img_queue
+            queues["img_queue"] = _push(latest_of(sel_c, i_upd, depth_n.to(iq.dtype), iq[:, 0]), iq)
+        if e.seg_cam:
+            sq = state.seg_queue
+            noisy = gc(~initial) & (torch.rand((nr,), generator=gen, device=dev) > 1 - e.seg_prob_noise)
+            seg_noisy = torch.where(noisy[:, None, None],
+                                    cam_mod.seg_noise(seg_im, gen, e.seg_prob_noise), seg_im)
+            queues["seg_queue"] = _push(latest_of(sel_c, s_upd, seg_noisy.to(sq.dtype), sq[:, 0]), sq)
+        if e.pcl_cam:
+            pq = state.pcl_queue
+            dense = const(subs.dense_points, dev)[gc(state.sub_idx)]
+            goal_pts = gc(params.socket_pos)[:, None, :] + rot.quat_apply(
+                gc(params.socket_quat)[:, None, :], dense)
+            merged = pcl_mod.assemble_scene_pcl(
+                ccfg, depth_raw, seg_im, goal_pts, gen, num_plug=e.num_points,
+                num_socket=e.num_points_socket, num_goal=e.num_points_goal,
+                include_plug=e.include_plug_pcl, merge_socket=e.merge_socket_pcl,
+                merge_goal=e.merge_goal_pcl, include_all=e.include_all_pcl)
+            if e.merge_socket_pcl and e.include_plug_pcl:
+                # the socket slice is captured once per episode (progress < 10,
+                # before the descending plug occludes it) and then frozen
+                s0, s1 = e.num_points, e.num_points + e.num_points_socket
+                sock = _where(gc(initial), merged[:, s0:s1], gc(pq[:, 0, s0:s1]))
+                merged = torch.cat([merged[:, :s0], sock, merged[:, s1:]], dim=1)
+            p_noise_on = gc(~initial) & (torch.rand((nr,), generator=gen, device=dev)
+                                         > 1 - e.pcl_prob_noise)
+            merged = pcl_mod.augment_pcl(merged, gen, pcl_mod.PclAugmentConfig(), p_noise_on)
+            queues["pcl_queue"] = _push(latest_of(sel_c, i_upd, merged, pq[:, 0]), pq)
+    if e.compute_contact_gt:
+        dense = const(subs.dense_points, dev)[state.sub_idx]
+        contacts = cgt_mod.extrinsic_contact(
+            dense, phys.plug_quat, phys.plug_pos, params.socket_quat, params.socket_pos,
+            params.kind_onehot, params.hole_hx, params.hole_hy, params.socket_height, gen)
+        queues["contact_queue"] = _push(contacts, state.contact_queue)
+    return queues, render_overflow
 
 
 def _check_close(cfg, phys, socket_tip):
@@ -769,7 +959,7 @@ def env_state_from_numpy(tree, device) -> EnvState:
     """The port's EnvState from the reference's EnvState given as host
     (numpy) arrays: a NamedTuple or a mapping with nested `phys`, `params`
     and `params.contact`. The reference's `rng` key is dropped (the port
-    draws from a torch.Generator); its sensor queues must be empty."""
+    draws from a torch.Generator); float16 queues stay float16."""
     dev = torch.device(device)
 
     def t(a):
@@ -778,12 +968,11 @@ def env_state_from_numpy(tree, device) -> EnvState:
             return torch.as_tensor(a, device=dev)
         if np.issubdtype(a.dtype, np.integer):
             return torch.as_tensor(a.astype(np.int64), device=dev)
+        if a.dtype == np.float16:
+            return torch.as_tensor(a, device=dev)
         return torch.as_tensor(a.astype(np.float32), device=dev)
 
     src = _fields(tree)
-    for k in SENSOR_QUEUES:
-        if k in src and np.asarray(src[k]).size:
-            raise NotImplementedError(f"sensor state {k} is not ported yet")
     pf = _fields(src["params"])
     params = PhysicsParams(**{k: (MaterialParams(**{c: t(v) for c, v in _fields(pf[k]).items()})
                                   if k == "contact" else t(pf[k]))

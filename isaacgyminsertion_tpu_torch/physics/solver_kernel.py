@@ -8,31 +8,21 @@ launch. CUDA tensors go to the kernel in `csrc/contact_solver.cu`; CPU
 tensors go to `solve_contacts_fused_plain`. There is no fallback: a CUDA
 input the kernel does not take raises.
 
-The kernel is built with nvcc for sm_90a at first use into `_build/` (listed
-in .gitignore), named by the hash of its source and flags, and bound with
-ctypes through a plain C entry point.
+The kernel is built with nvcc for sm_90a at first use and bound with ctypes
+through a plain C entry point (`utils/cuda_build.py`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from typing import NamedTuple
 
 import torch
 
+from ..utils.cuda_build import CudaKernel
 from .solver import ContactSet, position_correction, solve_contacts
 
 KERNEL_NAME = "contact_solver"
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                      "csrc", "contact_solver.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_CONTACTS = 256
 
 # Launches of the CUDA kernel, counted where the wrapper launches it.
@@ -71,51 +61,13 @@ class FusedSolveResult(NamedTuple):
 
 # --------------------------------------------------------------------------- build
 
-_LIB = None
-BUILD_INFO: dict = {}
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the contact-solver kernel is built on a CUDA machine")
-    return path
-
-
-def build() -> str:
-    """Compile the kernel (if its hashed .so is missing) and return its path.
-    Records the build time and the ptxas report in BUILD_INFO."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"lib{KERNEL_NAME}_{digest}.so")
-    if os.path.exists(so):
-        BUILD_INFO.update(path=so, seconds=0.0, cached=True)
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)
-    BUILD_INFO.update(path=so, seconds=time.perf_counter() - t0, cached=False,
-                      ptxas=(proc.stdout + proc.stderr).strip())
-    return so
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.contact_solver_launch
-        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                                 ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                                 ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+KERNEL = CudaKernel(
+    KERNEL_NAME, "contact_solver.cu", "contact_solver_launch",
+    [ctypes.c_void_p] * 17 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                              ctypes.c_void_p])
+BUILD_INFO = KERNEL.info
+build = KERNEL.build
 
 
 # ------------------------------------------------------------------------ versions
@@ -167,7 +119,7 @@ def solve_contacts_fused_cuda(mass, I_inv_w, v, w, cs: ContactSet, h: float, ite
                                    cs.stiffness, mass, I_inv_w, v, w, *out, lam_n, lam_t)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = _lib().contact_solver_launch(*ptrs, n, c, float(h), int(iters), int(pos_iters),
+        err = KERNEL.fn()(*ptrs, n, c, float(h), int(iters), int(pos_iters),
                                            float(beta_pos), float(slop), float(max_corr), stream)
     if err != 0:
         raise RuntimeError(f"contact_solver_launch failed: CUDA error {err}")

@@ -1,13 +1,18 @@
-"""Where the time of the teacher eval goes on the card.
+"""Where the time of the teacher eval or the student eval goes on the card.
 
     python -m isaacgyminsertion_tpu_torch.profile_eval [--envs 1024] [--steps 20]
+    python -m isaacgyminsertion_tpu_torch.profile_eval --student r5|r3 [--envs 256]
 
 Runs the banked r2b teacher's eval loop (policy + env step) at `--envs`
-envs on CUDA and prints, as one JSON line:
+envs on CUDA, or with `--student` the eval loop of a banked student on the
+sensors-on env (r5: obs + point cloud; r3: tactile + seg + point cloud), and
+prints, as one JSON line:
   - ms per control step (host clock around synchronized steps);
   - a host-clock split of one control step: priv + policy, the env step,
     and inside one physics substep the pre-solve work (FK, dynamics, contact
     generation), the contact solve, and the rest;
+  - with `--student`: the sensor step alone (rendering, queues, point cloud)
+    and its share of the env step, and each renderer's launch count per step;
   - from torch.profiler over `--steps` steps: device-busy ms per step (sum of
     CUDA kernel times), the device's idle share, kernel launches per step,
     and the kernels with the most device time.
@@ -17,6 +22,7 @@ The card's name and power limit come first, as nvidia-smi prints them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -31,12 +37,23 @@ from .envs.config import default_task_config
 from .models.actor_critic import actor_critic_from_jax_params
 from .models.running_mean_std import rms_normalize, rms_to
 from .physics import engine
+from .algo import ext_adapt as ea
+from .algo.trainer import StudentEvaluator
 from .physics import solver_kernel as sk
-from .physics.robot import build_kuka_openhand
+from .physics.kinematics import forward_kinematics, site_pose
+from .physics.robot import SITE_FINGERTIP_CENTERED, build_kuka_openhand
+from .sensors import render_kernels as rk
 from .utils.checkpoint import restore_path
 
-CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "checkpoints", "teacher_r2b", "best_success")
+CKPTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "checkpoints")
+CKPT = os.path.join(CKPTS, "teacher_r2b", "best_success")
+# the banked students: the env's sensor flags and the student's modality flags
+STUDENTS = {
+    "r5": (dict(external_cam=True, seg_cam=True, pcl_cam=True),
+           dict(use_obs=True, use_pcl=True, only_bc=True)),
+    "r3": (dict(tactile=True, external_cam=True, seg_cam=True, pcl_cam=True),
+           dict(use_obs=True, use_tactile=True, use_seg=True, use_pcl=True, only_bc=False)),
+}
 
 
 def _timed(fn, reps):
@@ -50,9 +67,12 @@ def _timed(fn, reps):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--envs", type=int, default=1024)
+    ap.add_argument("--envs", type=int, default=None, help="default 1024, or 256 with --student")
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--student", choices=sorted(STUDENTS), default=None)
     args = ap.parse_args(argv)
+    if args.envs is None:
+        args.envs = 256 if args.student else 1024
     dev = resolve_device(None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -60,17 +80,30 @@ def main(argv=None):
 
     cfg = default_task_config()
     model, subs = build_kuka_openhand(), build_subassembly_set()
-    tree = restore_path(CKPT)
-    net = actor_critic_from_jax_params(tree["params"], dev)
-    o_rms, p_rms = rms_to(tree["obs_rms"], dev), rms_to(tree["priv_rms"], dev)
     gen = insertion.make_generator(0, dev)
-    with torch.no_grad():
-        t_reset, state = _timed(lambda: insertion.reset_all(cfg, model, subs, gen, args.envs), 1)
+    if args.student:
+        env_flags, da_flags = STUDENTS[args.student]
+        cfg = cfg.replace(env=dataclasses.replace(cfg.env, **env_flags))
+        da_cfg = ea.DAggerConfig(**da_flags)
+        runner = StudentEvaluator(cfg, da_cfg, model, subs, args.envs, CKPT,
+                                  os.path.join(CKPTS, f"student_{args.student}", "best_success"),
+                                  device=dev)
+        student_act = ea.make_student_act(cfg, da_cfg, runner.teacher)
+
+        def act(s):
+            return student_act(runner.student, s.obs_stud_queue, ea._prev_out_of(s, cfg))[0]
+    else:
+        tree = restore_path(CKPT)
+        net = actor_critic_from_jax_params(tree["params"], dev)
+        o_rms, p_rms = rms_to(tree["obs_rms"], dev), rms_to(tree["priv_rms"], dev)
 
         def act(s):
             priv = insertion.priv_info_of(cfg, model, s)
             mu = net(rms_normalize(o_rms, s.obs_queue), rms_normalize(p_rms, priv))[0]
             return torch.clamp(mu, -1.0, 1.0)
+
+    with torch.no_grad():
+        t_reset, state = _timed(lambda: insertion.reset_all(cfg, model, subs, gen, args.envs), 1)
 
         def control_step():
             nonlocal state
@@ -91,6 +124,17 @@ def main(argv=None):
         t_prep, prob = _timed(lambda: engine.contact_problem(model, state.params, state.phys,
                                                              ctrl, h), args.steps)
         t_solve, _ = _timed(lambda: sk.solve_contacts_fused(*prob, h), args.steps)
+        sensors = None
+        if args.student:
+            fk2 = forward_kinematics(model, state.phys.q)
+            ftc_t2 = site_pose(model, fk2, SITE_FINGERTIP_CENTERED)[1]
+            counts = (rk.tactile_launch_count, rk.camera_launch_count)
+            t_sens, _ = _timed(lambda: insertion._sensor_step(
+                cfg, model, subs, state, state.phys, fk2, ftc_t2, state.frame + 1, state.progress + 1,
+                state.finger_forces_ema, gen), args.steps)
+            sensors = {"sensor_step_ms": t_sens, "share_of_env_step": t_sens / t_env,
+                       "tactile_launches_per_step": (rk.tactile_launch_count - counts[0]) / args.steps,
+                       "camera_launches_per_step": (rk.camera_launch_count - counts[1]) / args.steps}
 
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                   torch.profiler.ProfilerActivity.CUDA])
@@ -110,10 +154,12 @@ def main(argv=None):
                                                           "cudaLaunchKernelExC"))
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
     print(json.dumps({
+        "path": f"student_{args.student}" if args.student else "teacher_r2b",
         "envs": args.envs, "steps": args.steps, "reset_ms": t_reset, "step_ms": t_step,
         "env_steps_per_s": args.envs / t_step * 1e3,
         "split_ms": {"priv_and_policy": t_act, "env_step": t_env, "substep": t_sub,
                      "substep_pre_solve": t_prep, "contact_solve": t_solve},
+        "sensors": sensors,
         "profiled_step_ms": wall_ms, "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
         "kernel_launches_per_step": launches / args.steps,

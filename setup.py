@@ -13,7 +13,7 @@ setup(
     # the JAX/TPU package and its PyTorch + CUDA port (CUDA C++ sources under
     # csrc/, built with nvcc at first use)
     packages=find_packages(include=["isaacgyminsertion_tpu*", "isaacgyminsertion_tpu_torch*"]),
-    package_data={"isaacgyminsertion_tpu_torch": ["csrc/*.cu"]},
+    package_data={"isaacgyminsertion_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "numpy", "einops", "torch",

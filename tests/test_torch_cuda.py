@@ -1,6 +1,6 @@
-"""Card-only tests of the port (marker `cuda`): the hand-written contact
-solver kernel against its plain PyTorch version, alone and inside an engine
-step. They skip without a GPU. This file imports neither jax nor the JAX
+"""Card-only tests of the port (marker `cuda`): each hand-written kernel (the
+contact solver, the tactile and the camera renderer) against its plain PyTorch
+version, alone and inside an engine or env step. They skip without a GPU. This file imports neither jax nor the JAX
 package, so it also runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -17,6 +17,9 @@ from isaacgyminsertion_tpu_torch.physics import engine
 from isaacgyminsertion_tpu_torch.physics import solver_kernel as sk
 from isaacgyminsertion_tpu_torch.physics.robot import build_kuka_openhand
 from isaacgyminsertion_tpu_torch.physics.solver import ContactSet
+from isaacgyminsertion_tpu_torch.sensors import camera as cam_mod
+from isaacgyminsertion_tpu_torch.sensors import render_kernels as rk
+from isaacgyminsertion_tpu_torch.sensors import tactile as tact_mod
 
 H = 1.0 / 180.0
 
@@ -24,7 +27,7 @@ H = 1.0 / 180.0
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the contact-solver kernel is CUDA C++ for sm_90a")
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ for sm_90a")
     return torch.device("cuda")
 
 
@@ -89,3 +92,127 @@ def test_engine_step_on_the_card_matches_the_cpu(cuda_device):
     for f in ("qd", "plug_v", "plug_w", "tip_forces", "tip_fn"):
         np.testing.assert_allclose(getattr(p_gpu, f).cpu().numpy(), getattr(p_cpu, f).numpy(),
                                    rtol=1e-4, atol=1e-3, err_msg=f)
+
+
+def _assert_images(out, ref):
+    """Renderer kernel vs plain, noise off: the two round differently (fused
+    multiply-adds), so a silhouette pixel may flip; fewer than 0.5 % may differ
+    by more than 1e-3, and the rest agree to 2e-4."""
+    assert bool(torch.isfinite(out).all())
+    err = (out - ref).abs()
+    flipped = err > 1e-3
+    assert float(flipped.float().mean()) < 5e-3
+    assert float(err[~flipped].max()) < 2e-4
+    return flipped
+
+
+def _tactile_scene(n, seed, device):
+    args = [torch.as_tensor(a, device=device) for a in rk.random_tactile_inputs(n, seed)]
+    return tact_mod.render_inputs(tact_mod.TactileConfig(), *args)
+
+
+def _camera_scene(n, seed, device):
+    args, kw = rk.random_camera_inputs(n, seed)
+    T = lambda a: torch.as_tensor(a, device=device)
+    return cam_mod.render_inputs(cam_mod.CameraConfig(), *[T(a) for a in args],
+                                 **{k: (T(v) if hasattr(v, "shape") else v) for k, v in kw.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,exact", [(2, True), (7, True), (256, True), (7, False)])
+def test_tactile_kernel_matches_plain(cuda_device, n, exact):
+    args, kw = _tactile_scene(n, 3, cuda_device)
+    before = rk.tactile_launch_count
+    out = rk.tactile_render(*args, **kw, exact=exact)
+    torch.cuda.synchronize()
+    assert rk.tactile_launch_count == before + 1
+    assert tuple(out.shape) == (3 * n, 4096, 3)
+    assert float((out > 0.01).float().mean()) > 0.01      # the pads do see the plug
+    _assert_images(out, rk.tactile_render_plain(*args, **kw, exact=exact))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gauss", "ih4"])
+def test_tactile_kernel_noise(cuda_device, kind):
+    """In-kernel Philox noise: finite, clipped to [0, 1], mean 0 and std 0.01
+    on lit pixels away from the clip, new numbers for a new seed, the same
+    numbers for the same seed."""
+    args, kw = _tactile_scene(64, 4, cuda_device)
+    clean = rk.tactile_render(*args, **kw)
+    draw = lambda seed: rk.tactile_render(*args, **kw, noise_std=0.01, noise_kind=kind,
+                                          generator=insertion.make_generator(seed, cuda_device))
+    a, b, a2 = draw(1), draw(2), draw(1)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(a).all()) and float(a.min()) >= 0.0 and float(a.max()) <= 1.0
+    interior = (clean > 0.06) & (clean < 0.94)
+    resid = (a - clean)[interior]
+    assert abs(float(resid.mean())) < 1e-3 and abs(float(resid.std()) - 0.01) < 5e-4
+    assert bool((a == a2).all()) and not bool((a == b).all())
+    # neighbouring pixels and the three colour planes are uncorrelated
+    r = (a - clean)[interior.all(-1)]
+    assert abs(float(torch.corrcoef(r.T)[0, 1])) < 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,exact", [(1, True), (6, True), (256, True), (6, False)])
+def test_camera_kernel_matches_plain(cuda_device, n, exact):
+    args, kw = _camera_scene(n, 5, cuda_device)
+    before = rk.camera_launch_count
+    kt, kd, kc = rk.camera_render(*args, **kw, exact=exact)
+    torch.cuda.synchronize()
+    assert rk.camera_launch_count == before + 1
+    pt, pd, pc = rk.camera_render_plain(*args, **kw, exact=exact)
+    flipped = _assert_images(kt, pt)
+    assert float(((kc != pc) & ~flipped).float().mean()) < 1e-4
+    if exact:
+        assert float(((kd != pd) & ~flipped).float().mean()) < 1e-4
+    else:
+        _assert_images(kd, pd)
+
+
+@pytest.mark.cuda
+def test_render_kernels_refuse_what_they_do_not_take(cuda_device):
+    args, kw = _tactile_scene(2, 0, cuda_device)
+    with pytest.raises(TypeError):    # float64
+        rk.tactile_render(args[0].double(), *args[1:], **kw)
+    with pytest.raises(ValueError):   # a tensor left on the CPU
+        rk.tactile_render(args[0], args[1].cpu(), *args[2:], **kw)
+    cargs, ckw = _camera_scene(2, 0, cuda_device)
+    with pytest.raises(ValueError):   # wrong shape
+        rk.camera_render(cargs[0][:, :2], *cargs[1:], **ckw)
+
+
+@pytest.mark.cuda
+def test_sensor_step_on_the_card_matches_the_cpu(cuda_device):
+    """Three sensors-on env steps from one reset, CUDA tensors (kernels) vs CPU
+    tensors (plain versions); noise and delays off. Depth, seg and the tactile
+    image agree off the silhouette pixels; each renderer launches once per step."""
+    import dataclasses
+
+    cfg = default_task_config()
+    cfg = cfg.replace(
+        randomize=dataclasses.replace(cfg.randomize, domain_randomize=False),
+        env=dataclasses.replace(cfg.env, tactile=True, external_cam=True, depth_cam=True, seg_cam=True,
+                                action_delay_prob_max=0.0, plug_obs_delay_prob=0.0,
+                                tactile_delay_prob=0.0, img_delay_prob=0.0, seg_delay_prob=0.0,
+                                seg_prob_noise=0.0, max_skip_tactile=1, max_skip_img=1))
+    model, subs = build_kuka_openhand(), build_subassembly_set()
+    n = 8
+    to = lambda x: (type(x)(*[to(y) for y in x]) if isinstance(x, tuple)
+                    else (x.to(cuda_device) if isinstance(x, torch.Tensor) else x))
+    with torch.no_grad():
+        s_cpu = insertion.reset_all(cfg, model, subs, insertion.make_generator(0, "cpu"), n)
+        s_gpu = to(s_cpu)
+        t0, c0 = rk.tactile_launch_count, rk.camera_launch_count
+        for _ in range(3):
+            a = torch.zeros((n, 6))
+            s_cpu, o_cpu = insertion.step(cfg, model, subs, s_cpu, a, insertion.make_generator(1, "cpu"))
+            s_gpu, o_gpu = insertion.step(cfg, model, subs, s_gpu, a.to(cuda_device),
+                                          insertion.make_generator(1, cuda_device))
+        torch.cuda.synchronize()
+    assert rk.tactile_launch_count == t0 + 3 and rk.camera_launch_count == c0 + 3
+    assert float((o_gpu.seg.cpu() != o_cpu.seg).float().mean()) < 5e-3
+    # depth carries ±1 mm noise from two generators (÷ 0.5 m), the tactile image σ 0.01
+    assert float(((o_gpu.img.cpu() - o_cpu.img).abs() > 6e-3).float().mean()) < 5e-3
+    d = (o_gpu.tactile.cpu() - o_cpu.tactile).abs()
+    assert float(d.mean()) < 0.012 and float((d > 0.08).float().mean()) < 5e-3

@@ -1,6 +1,7 @@
 """The port stands alone: no module of isaacgyminsertion_tpu_torch/, and not
 chip_smoke.py, imports jax or the JAX package; its entry points refuse to run
-on the CPU unless asked; its CLI runs only the teacher eval."""
+on the CPU unless asked; its CLI runs the teacher and the student eval and
+no training yet; its kernels have no quiet fall-back."""
 
 import ast
 import os
@@ -33,7 +34,11 @@ def _forbidden(name: str) -> bool:
 def test_port_imports_neither_jax_nor_the_jax_package():
     found = []
     sources = list(_sources())
-    assert len(sources) > 15
+    assert len(sources) > 30
+    for module in ("sensors/raycast.py", "sensors/render_kernels.py", "sensors/tactile.py",
+                   "sensors/camera.py", "sensors/pcl.py", "sensors/contact_gt.py", "models/student.py",
+                   "algo/ext_adapt.py", "utils/cuda_build.py"):
+        assert any(p.endswith(os.path.join(PORT, module)) for p in sources), module
     for path in sources:
         tree = ast.parse(open(path).read(), filename=path)
         for node in ast.walk(tree):
@@ -64,6 +69,10 @@ def test_cli_runs_only_the_teacher_eval():
     assert args["task"].rl.max_episode_length == 7
     with pytest.raises(SystemExit, match="next slice"):
         cli.main(["train.algo=PPO", "test=False"])
+    with pytest.raises(SystemExit, match="not ported yet"):
+        cli.main(["train.algo=ExtrinsicAdapt", "checkpoint=x", "student_checkpoint=y"])
+    with pytest.raises(SystemExit, match="student_checkpoint"):
+        cli.main(["train.algo=ExtrinsicAdapt", "test=True", "checkpoint=x"])
     with pytest.raises(SystemExit, match="unknown override"):
         cli.parse_args(["train.ppo.horizon_length=16"])
 
@@ -76,13 +85,77 @@ def test_cli_eval_on_the_cpu_when_asked(capsys):
     assert "Success Rate:" in capsys.readouterr().out
 
 
+# the argument list of scripts/eval_s2.sh (python train.py ... "$@"), with its defaults
+EVAL_S2 = ["train.algo=ExtrinsicAdapt", "test=True", "task.env.numEnvs=64",
+           "task.external_cam.external_cam=True", "task.external_cam.seg_cam=True",
+           "task.external_cam.pcl_cam=True", "train.ppo.pcl_info=True", "train.ppo.obs_info=True",
+           "train.ppo.only_bc=True"]
+
+
+def test_cli_parses_the_student_eval_recipe():
+    script = open(os.path.join(ROOT, "scripts", "eval_s2.sh")).read()
+    for arg in EVAL_S2:
+        assert arg.split("=")[0] in script, arg          # the list above is the script's
+    args = cli.parse_args(EVAL_S2 + ["checkpoint=t", "student_checkpoint=s", "noise_study=True",
+                                     "task.env.tactile=True", "task.env.render_capacity=0.75",
+                                     "train.ppo.tactile_info=True", "train.ppo.seg_info=True",
+                                     "dagger.use_img=True", "offline_train.from_offline=True",
+                                     "output=outputs/x"])
+    assert args["algo"] == "ExtrinsicAdapt" and args["num_envs"] == 64 and args["noise_study"]
+    assert args["student_checkpoint"] == "s" and args["output"] == "outputs/x"
+    e, d = args["task"].env, args["dagger"]
+    assert e.external_cam and e.seg_cam and e.pcl_cam and e.tactile and not e.depth_cam
+    assert e.render_capacity == 0.75
+    assert d.use_pcl and d.use_obs and d.only_bc and d.use_tactile and d.use_seg and d.use_img
+
+
+def test_cli_student_eval_on_the_cpu_when_asked(capsys):
+    ck = os.path.join(ROOT, "checkpoints")
+    argv = [a for a in EVAL_S2 if not a.startswith("task.env.numEnvs")] + [
+        f"checkpoint={ck}/teacher_r2b/best_success", f"student_checkpoint={ck}/student_r5/best_success",
+        "task.env.numEnvs=2", "task.rl.max_episode_length=10"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):                # no GPU and no device=cpu: it raises
+            cli.main(argv)
+    sr = cli.main(argv + ["device=cpu"])
+    assert 0.0 <= sr <= 1.0
+    assert "Success Rate:" in capsys.readouterr().out
+
+
+def test_kernel_wrappers_dispatch_by_device_without_a_fallback():
+    """On CPU tensors a wrapper takes its plain version; asked for the CUDA
+    path on CPU tensors it raises, and no wrapper hides a failure in a try."""
+    from isaacgyminsertion_tpu_torch.sensors import render_kernels as rk
+    from isaacgyminsertion_tpu_torch.sensors import tactile as tact_mod
+
+    args, kw = tact_mod.render_inputs(tact_mod.TactileConfig(),
+                                      *[torch.as_tensor(a) for a in rk.random_tactile_inputs(1, 0)])
+    before = rk.tactile_launch_count
+    assert tuple(rk.tactile_render(*args, **kw).shape) == (3, 4096, 3)
+    assert rk.tactile_launch_count == before             # the plain version does not count
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rk.tactile_render_cuda(*args, **kw)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rk.camera_rows_cuda(torch.zeros((1, rk.CAMERA_ROW)), torch.zeros((3, 8)), iters=1, near=0.1,
+                            far=0.5, plate_hx=0.05, plate_hy=0.04)
+    for module in ("sensors/render_kernels.py", "physics/solver_kernel.py"):
+        tree = ast.parse(open(os.path.join(ROOT, PORT, module)).read())
+        assert not any(isinstance(node, ast.Try) for node in ast.walk(tree)), module
+
+
 def test_sensor_flags_are_refused():
+    """The sensor flags are served since the sensors-on slice; what is still
+    refused is the CycleGAN sim→real hook on tactile frames."""
     from isaacgyminsertion_tpu_torch.assets import build_subassembly_set
     from isaacgyminsertion_tpu_torch.envs import insertion
     from isaacgyminsertion_tpu_torch.envs.config import default_task_config
     from isaacgyminsertion_tpu_torch.physics.robot import build_kuka_openhand
 
     cfg = cli._set_path(default_task_config(), "env.tactile", True)
-    with pytest.raises(NotImplementedError):
-        insertion.reset_all(cfg, build_kuka_openhand(), build_subassembly_set(),
-                            insertion.make_generator(0, "cpu"), 2)
+    model, subs = build_kuka_openhand(), build_subassembly_set()
+    gen = insertion.make_generator(0, "cpu")
+    with torch.no_grad():
+        state = insertion.reset_all(cfg, model, subs, gen, 2)
+        assert tuple(state.tactile_queue.shape) == (2, 1, 3, 64, 64, 3) and state.img_queue.numel() == 0
+        with pytest.raises(NotImplementedError):
+            insertion.step(cfg, model, subs, state, torch.zeros((2, 6)), gen, gan_params={})
