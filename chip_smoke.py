@@ -10,8 +10,10 @@ Phases, in order; any failure exits nonzero without printing a result:
      nvcc per source, all started together), with ptxas' register counts;
   3. each kernel against its plain PyTorch version on the card:
      - contact_solver at N = 1024 envs, C = 255 contacts: a random contact set
-       and one captured from a real env substep, at the reference's
-       fused-vs-XLA solver tolerances;
+       and one captured from a real env substep (with the distribution of
+       active contacts per env), then edge cases at C = 255, 37 and 200: an
+       env with no active contact, an env with every contact active, C not a
+       multiple of 32; all at the reference's fused-vs-XLA solver tolerances;
      - tactile_render (R = 768 rows × 4096 pixels) and camera_render (N = 256
        envs × 5184 pixels), closed-form variant: inputs captured from a
        sensors-on env a few steps after reset, and one random set; the march
@@ -34,8 +36,9 @@ Phases, in order; any failure exits nonzero without printing a result:
      render_capacity=0.75 to drive the gathered render-on-demand path;
   7. times: each kernel and its plain version on CUDA events, beside the
      least time the card could take (bytes or f32 operations at the published
-     H100 SXM peaks). The renderers are timed on packed rows with the L2 cache
-     flushed before each launch.
+     H100 SXM peaks). The solver is timed at 1024 and at 256 envs, on the
+     captured and on the random contact set; the renderers on packed rows with
+     the L2 cache flushed before each launch.
 Launch counts are zeroed just before each main path and read just after. The
 line before the last is a JSON object listing every ported kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -85,55 +88,19 @@ def _fail(msg):
     sys.exit(1)
 
 
-def _cuda_time_ms(fn, reps, warmup=3, flush=None):
-    """Mean time of fn on CUDA events. With `flush` (a large tensor) the L2
-    cache is overwritten before every timed call and each call is timed alone."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    if flush is None:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-    events = []
-    for _ in range(reps):
-        flush.zero_()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / reps
-
-
 def _compare(name, out, ref):
     """Hold the solver kernel to its plain version at the reference's
-    fused-vs-XLA solver tolerances (summation order differs; 16 iterations
-    with discontinuous friction-cone projections grow fp deltas to ~1e-3)."""
-    import numpy as np
+    fused-vs-XLA solver tolerances (`capture.SOLVER_TOL`) -> max abs error."""
+    from isaacgyminsertion_tpu_torch.utils import capture
 
-    tol = dict(v=(2e-3, 2e-3), w=(5e-3, 2e-2), lam_n=(2e-3, 1e-4), lam_t=(5e-3, 1e-3),
-               dx=(2e-3, 1e-5), dth=(5e-3, 1e-3))
-    worst = 0.0
-    for field, (rtol, atol) in tol.items():
-        a = getattr(out, field).detach().cpu().numpy()
-        b = getattr(ref, field).detach().cpu().numpy()
-        if not np.isfinite(a).all():
-            raise PhaseError(f"{name}: kernel output {field} is not finite")
-        err = np.abs(a - b)
-        bad = err > atol + rtol * np.abs(b)
-        if bad.any():
-            i = np.unravel_index(np.argmax(err - (atol + rtol * np.abs(b))), err.shape)
-            raise PhaseError(f"{name}: {field} differs at {i}: kernel {a[i]} vs plain {b[i]} "
-                             f"({int(bad.sum())} of {bad.size} outside rtol {rtol}, atol {atol})")
-        worst = max(worst, float(err.max()))
+    worst, bad, finite = capture.solver_errors(out, ref)
+    if not finite:
+        raise PhaseError(f"{name}: a kernel output is not finite")
+    if bad:
+        field, n_bad, size, i, a, b = bad[0]
+        rtol, atol = capture.SOLVER_TOL[field]
+        raise PhaseError(f"{name}: {field} differs at {i}: kernel {a} vs plain {b} "
+                         f"({n_bad} of {size} outside rtol {rtol}, atol {atol})")
     return worst
 
 
@@ -180,51 +147,6 @@ def _check_noise(name, noisy, clean):
     return mean, std
 
 
-def _sensor_inputs(cfg, model, state):
-    """(args, kwargs) of the two renderers for an env state, as the env's
-    sensor step builds them for the whole batch."""
-    from isaacgyminsertion_tpu_torch.physics import engine
-    from isaacgyminsertion_tpu_torch.physics.kinematics import forward_kinematics, site_pose
-    from isaacgyminsertion_tpu_torch.physics.robot import SITE_FINGERTIP_CENTERED
-    from isaacgyminsertion_tpu_torch.sensors import camera as cam_mod
-    from isaacgyminsertion_tpu_torch.sensors import tactile as tact_mod
-
-    phys, p = state.phys, state.params
-    fk = forward_kinematics(model, phys.q)
-    tip_q, tip_t = engine.fingertip_poses(model, fk)
-    _, ftc_t = site_pose(model, fk, SITE_FINGERTIP_CENTERED)
-    wrist = fk.body_t[..., 6, :]
-    tact = tact_mod.render_inputs(
-        tact_mod.TactileConfig(), tip_q, tip_t, phys.plug_quat, phys.plug_pos, p.kind_onehot,
-        p.plug_hx * p.plug_scale, p.plug_hy * p.plug_scale, p.plug_length * p.plug_scale,
-        state.finger_forces_ema)
-    cam = cam_mod.render_inputs(
-        cam_mod.CameraConfig(), phys.plug_quat, phys.plug_pos, p.socket_quat, p.socket_pos,
-        p.kind_onehot, p.plug_hx, p.plug_hy, p.plug_length, p.hole_hx, p.hole_hy, p.socket_height,
-        p.table_height, tip_pos=tip_t, wrist_pos=wrist, hand_pos=ftc_t + 0.55 * (wrist - ftc_t),
-        tip_radius=0.012, hand_radius=0.032)
-    return tact, cam
-
-
-def _random_scene(n, seed, dev):
-    """Random tactile and camera scenes (numpy seed) in the style of the
-    reference's render parity tests → the two renderers' (args, kwargs)."""
-    import numpy as np
-    import torch
-
-    from isaacgyminsertion_tpu_torch.sensors import camera as cam_mod
-    from isaacgyminsertion_tpu_torch.sensors import render_kernels as rk
-    from isaacgyminsertion_tpu_torch.sensors import tactile as tact_mod
-
-    T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    tact = tact_mod.render_inputs(tact_mod.TactileConfig(),
-                                  *[T(a) for a in rk.random_tactile_inputs(n, seed)])
-    cargs, ckw = rk.random_camera_inputs(n, seed)
-    cam = cam_mod.render_inputs(cam_mod.CameraConfig(), *[T(a) for a in cargs],
-                                **{k: (T(v) if hasattr(v, "shape") else v) for k, v in ckw.items()})
-    return tact, cam
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -253,17 +175,15 @@ def main():
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"float32_matmul_precision={torch.get_float32_matmul_precision()}", flush=True)
 
-    import dataclasses
-
     from isaacgyminsertion_tpu_torch import cli
     from isaacgyminsertion_tpu_torch.assets import build_subassembly_set
     from isaacgyminsertion_tpu_torch.envs import insertion
     from isaacgyminsertion_tpu_torch.envs.config import default_task_config
-    from isaacgyminsertion_tpu_torch.physics import engine
     from isaacgyminsertion_tpu_torch.physics import solver_kernel as sk
     from isaacgyminsertion_tpu_torch.physics.robot import build_kuka_openhand
     from isaacgyminsertion_tpu_torch.physics.solver import ContactSet
     from isaacgyminsertion_tpu_torch.sensors import render_kernels as rk
+    from isaacgyminsertion_tpu_torch.utils import capture
     from isaacgyminsertion_tpu_torch.utils.cuda_build import build_all
 
     # ---------------------------------------------------------------- 2. build
@@ -276,41 +196,59 @@ def main():
               f"({'cached' if k.info.get('cached') else 'nvcc'}); {'; '.join(k.registers())}", flush=True)
 
     # ------------------------------------------------------ 3. kernel vs plain
-    mass, I_inv, v, w, cs = sk.random_problem(N_ENVS, 255, seed=0)
     T = lambda a: torch.as_tensor(a, device=dev)
-    rand_args = (T(mass), T(I_inv), T(v), T(w), ContactSet(**{k: T(x) for k, x in cs.items()}))
-    out = sk.solve_contacts_fused_cuda(*rand_args, H)
-    torch.cuda.synchronize()
-    err_rand = _compare("random contacts", out, sk.solve_contacts_fused_plain(*rand_args, H))
+
+    def random_args(n, c, seed, **kw):
+        mass, I_inv, v, w, cs = sk.random_problem(n, c, seed=seed, **kw)
+        return T(mass), T(I_inv), T(v), T(w), ContactSet(**{k: T(x) for k, x in cs.items()})
+
+    def solver_vs_plain(name, args):
+        out = sk.solve_contacts_fused_cuda(*args, H)
+        torch.cuda.synchronize()
+        return out, _compare(name, out, sk.solve_contacts_fused_plain(*args, H))
+
+    rand_args = random_args(N_ENVS, 255, 0)
+    _, err_rand = solver_vs_plain("random contacts", rand_args)
 
     cfg = default_task_config()
     model, subs = build_kuka_openhand(), build_subassembly_set()
-    with torch.no_grad():
-        state = insertion.reset_all(cfg, model, subs, insertion.make_generator(0, dev), N_ENVS)
-        ctrl = engine.ControlInput(q_target=state.phys.q, tau_cmd=torch.zeros_like(state.phys.q),
-                                   torque_mode_mask=torch.zeros((15,), device=dev),
-                                   plug_wrench=torch.zeros((N_ENVS, 6), device=dev))
-        real_args = engine.contact_problem(model, state.params, state.phys, ctrl, H)
-    out = sk.solve_contacts_fused_cuda(*real_args, H)
-    torch.cuda.synchronize()
-    err_real = _compare("env contacts", out, sk.solve_contacts_fused_plain(*real_args, H))
-    n_act = int((real_args[4].depth > 0).sum())
+    real_args = capture.substep_problem(cfg, model, subs, N_ENVS, H, dev)
+    _, err_real = solver_vs_plain("env contacts", real_args)
+    k_env = capture.active_counts(real_args[4]).float()
     print(f"kernel vs plain: contact_solver N={N_ENVS} C={real_args[4].depth.shape[1]}: "
           f"random max_abs_err {err_rand:.3e}, env substep max_abs_err {err_real:.3e} "
-          f"({n_act} of {real_args[4].depth.numel()} contacts active)", flush=True)
+          f"({int(k_env.sum())} of {real_args[4].depth.numel()} contacts active)", flush=True)
+    q = lambda x: int(torch.quantile(k_env, x, interpolation="higher"))
+    print(f"contact_solver: active contacts per env on the env substep: min {int(k_env.min())}, "
+          f"median {q(0.5)}, p99 {q(0.99)}, max {int(k_env.max())} of {real_args[4].depth.shape[1]}; "
+          f"random set: median {int(capture.active_counts(rand_args[4]).median())}", flush=True)
+    # edge cases, on contact sets that stay bounded over the iterations (short lever arms)
+    for c in (255, 37, 200):
+        mass, I_inv, v, w, cs = sk.random_problem(8, c, seed=3, lever=0.01)
+        cs["depth"][0] = -abs(cs["depth"][0]) - 1e-4         # env 0: no active contact
+        cs["depth"][1] = abs(cs["depth"][1]) + 1e-4          # env 1: every contact active
+        cs["weight"][2, ::3] = 0.0                            # env 2: inert by weight
+        args = (T(mass), T(I_inv), T(v), T(w), ContactSet(**{k: T(x) for k, x in cs.items()}))
+        out, e = solver_vs_plain(f"edge cases C={c}", args)
+        k_edge = capture.active_counts(args[4]).tolist()
+        if k_edge[0] != 0 or k_edge[1] != c:
+            raise PhaseError(f"edge cases C={c}: active counts {k_edge}, expected 0 and {c} first")
+        if not (torch.equal(out.v[0], args[2][0]) and torch.equal(out.w[0], args[3][0])
+                and not bool(out.lam_n[0].any()) and not bool(out.dx[0].any())):
+            raise PhaseError(f"edge cases C={c}: the env with no active contact did not keep its velocity")
+        inert = ~((args[4].depth > 0) & (args[4].weight != 0))
+        if bool(out.lam_n[inert].any()) or bool(out.lam_t[inert].any()):
+            raise PhaseError(f"edge cases C={c}: an inert contact got an impulse")
+        print(f"kernel vs plain: contact_solver edge cases N=8 C={c}: active per env {k_edge}, "
+              f"max_abs_err {e:.3e}, inert impulses exactly 0", flush=True)
 
     # the renderers: a sensors-on env a few steps after reset (the pads press on the plug)
-    cfg_s = cfg.replace(env=dataclasses.replace(cfg.env, tactile=True, external_cam=True,
-                                                seg_cam=True, pcl_cam=True))
+    cfg_s = capture.sensors_on(cfg)
+    s_state, s_out, gen = capture.sensor_state(cfg_s, model, subs, STUDENT_ENVS, dev)
     with torch.no_grad():
-        gen = insertion.make_generator(1, dev)
-        s_state = insertion.reset_all(cfg_s, model, subs, gen, STUDENT_ENVS)
-        for _ in range(3):
-            s_state, s_out = insertion.step(cfg_s, model, subs, s_state,
-                                            torch.zeros((STUDENT_ENVS, 6), device=dev), gen)
-        (t_args, t_kw), (c_args, c_kw) = _sensor_inputs(cfg_s, model, s_state)
-        (tr_args, tr_kw), (cr_args, cr_kw) = _random_scene(STUDENT_ENVS, 7, dev)
-        (tm_args, tm_kw), (cm_args, cm_kw) = _random_scene(8, 11, dev)
+        (t_args, t_kw), (c_args, c_kw) = capture.sensor_inputs(model, s_state)
+        (tr_args, tr_kw), (cr_args, cr_kw) = capture.random_scene(STUDENT_ENVS, 7, dev)
+        (tm_args, tm_kw), (cm_args, cm_kw) = capture.random_scene(8, 11, dev)
 
         errs = {}
         for label, a, kw in (("env state", t_args, t_kw), ("random", tr_args, tr_kw)):
@@ -453,32 +391,36 @@ def main():
 
     launches = {k: sum(results[p][k] for p in results) for k in ("contact_solver", "tactile_render",
                                                                   "camera_render")} if results else {}
+    time_ms = capture.cuda_time_ms
     with torch.no_grad():
         n, c = real_args[4].depth.shape
+        solve = lambda args: time_ms(lambda: sk.solve_contacts_fused_cuda(*args, H), reps=50)
+        solver_ms = solve(real_args)
         row(sk.KERNEL_NAME, "contact_solver.cu", "isaacgyminsertion_tpu/physics/solver_pallas.py:40",
-            launches.get("contact_solver", 0), err_real,
-            _cuda_time_ms(lambda: sk.solve_contacts_fused_cuda(*real_args, H), reps=50),
-            _cuda_time_ms(lambda: sk.solve_contacts_fused_plain(*real_args, H), reps=5, warmup=1),
+            launches.get("contact_solver", 0), err_real, solver_ms,
+            time_ms(lambda: sk.solve_contacts_fused_plain(*real_args, H), reps=5, warmup=1),
             sk.flops(n, c), sk.bytes_moved(n, c))
+        real_small = capture.substep_problem(cfg, model, subs, STUDENT_ENVS, H, dev)
+        print(f"times: contact_solver env substep {N_ENVS} envs {solver_ms:.4f} ms, "
+              f"{STUDENT_ENVS} envs {solve(real_small):.4f} ms; random set {N_ENVS} envs "
+              f"{solve(rand_args):.4f} ms, {STUDENT_ENVS} envs "
+              f"{solve(random_args(STUDENT_ENVS, 255, 0)):.4f} ms", flush=True)
         flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=dev)   # 1 GB: 20 x L2
-        t_rows = rk.tactile_rows(*t_args, mask_flat=t_kw["mask_flat"])
-        t_rkw = {k: v for k, v in t_kw.items() if k != "mask_flat"}
+        t_rows, t_rkw = capture.tactile_packed(t_args, t_kw)
         noise_kw = dict(generator=insertion.make_generator(9, dev), noise_std=0.01)
         r, p = t_rows[0].shape[0], t_rows[1].shape[1]
         row("tactile_render", "tactile_render.cu", "isaacgyminsertion_tpu/sensors/render_pallas.py:90",
             launches.get("tactile_render", 0), errs[("tactile", "env state")],
-            _cuda_time_ms(lambda: rk.tactile_rows_cuda(*t_rows, **t_rkw, **noise_kw), reps=30, flush=flush),
-            _cuda_time_ms(lambda: rk.tactile_rows_plain(*t_rows, **t_rkw, **noise_kw), reps=5, warmup=1,
-                          flush=flush),
+            time_ms(lambda: rk.tactile_rows_cuda(*t_rows, **t_rkw, **noise_kw), reps=30, flush=flush),
+            time_ms(lambda: rk.tactile_rows_plain(*t_rows, **t_rkw, **noise_kw), reps=5, warmup=1,
+                    flush=flush),
             rk.tactile_flops(r, p, exact=True, noise_kind="gauss"), rk.tactile_bytes_moved(r, p))
-        c_rows = rk.camera_rows(*c_args, tips_cam=c_kw["tips_cam"], wrist_cam=c_kw["wrist_cam"],
-                                hand_cam=c_kw["hand_cam"])
-        c_rkw = {k: v for k, v in c_kw.items() if k not in ("tips_cam", "wrist_cam", "hand_cam")}
+        c_rows, c_rkw = capture.camera_packed(c_args, c_kw)
         n, p = c_rows[0].shape[0], c_rows[1].shape[1]
         row("camera_render", "camera_render.cu", "isaacgyminsertion_tpu/sensors/render_pallas.py:388",
             launches.get("camera_render", 0), errs[("camera", "env state")],
-            _cuda_time_ms(lambda: rk.camera_rows_cuda(*c_rows, **c_rkw), reps=30, flush=flush),
-            _cuda_time_ms(lambda: rk.camera_rows_plain(*c_rows, **c_rkw), reps=5, warmup=1, flush=flush),
+            time_ms(lambda: rk.camera_rows_cuda(*c_rows, **c_rkw), reps=30, flush=flush),
+            time_ms(lambda: rk.camera_rows_plain(*c_rows, **c_rkw), reps=5, warmup=1, flush=flush),
             rk.camera_flops(n, p, exact=True), rk.camera_bytes_moved(n, p))
     if opts.kernels_only:
         print(json.dumps({"kernels": kernel_rows}), flush=True)

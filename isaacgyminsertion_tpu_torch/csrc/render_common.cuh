@@ -205,13 +205,13 @@ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1, uint3
                                                  uint32_t k0, uint32_t k1) {
 #pragma unroll
     for (int r = 0; r < 10; ++r) {
-        const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-        const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-        const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+        // one 32 x 32 -> 64 bit multiply gives both halves of each product
+        const uint64_t p0 = (uint64_t)0xD2511F53u * c0, p1 = (uint64_t)0xCD9E8D57u * c2;
+        const uint32_t n0 = (uint32_t)(p1 >> 32) ^ c1 ^ k0, n2 = (uint32_t)(p0 >> 32) ^ c3 ^ k1;
         c0 = n0;
-        c1 = lo1;
+        c1 = (uint32_t)p1;
         c2 = n2;
-        c3 = lo0;
+        c3 = (uint32_t)p0;
         k0 += 0x9E3779B9u;
         k1 += 0xBB67AE85u;
     }
@@ -226,3 +226,26 @@ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1, uint3
 // Uniform in [0, 1) from the top 24 bits of an UNSIGNED word (a signed shift
 // would keep the sign and feed log() a negative number).
 __device__ __forceinline__ float u24(uint32_t w) { return (float)(w >> 8) * 5.9604644775390625e-8f; }
+
+// ------------------------------------------------------- approximate math
+// The special-function unit's one-instruction approximations (about 1-2 ulp),
+// for the renderers' images only: an IEEE division or sqrtf is an instruction
+// sequence of ten or more.
+
+__device__ __forceinline__ float rcp_fast(float x) {
+    float y;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ float sqrt_fast(float x) {
+    float y;
+    asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ float rsqrt_fast(float x) {
+    float y;
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}

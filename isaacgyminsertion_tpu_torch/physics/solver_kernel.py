@@ -127,15 +127,18 @@ def solve_contacts_fused_cuda(mass, I_inv_w, v, w, cs: ContactSet, h: float, ite
     return FusedSolveResult(v=out[0], w=out[1], lam_n=lam_n, lam_t=lam_t, dx=out[2], dth=out[3])
 
 
-def random_problem(n: int, c: int, seed: int = 0):
+def random_problem(n: int, c: int, seed: int = 0, lever: float = 0.05):
     """A random contact problem as numpy arrays (mass, I_inv, v, w, ContactSet
     fields): the construction of the reference's solver parity test — ~1/3 of
-    the contacts penetrating, the first 3 slots soft gel pads moving."""
+    the contacts penetrating, the first 3 slots soft gel pads moving. `lever`
+    is the spread of the contact points around the com in metres; with the
+    default some envs' impulses grow without bound over the iterations (the
+    random inertias are small), with 0.01 every env stays bounded."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     f32 = lambda a: np.asarray(a, np.float32)
-    r = rng.normal(size=(n, c, 3)) * 0.05
+    r = rng.normal(size=(n, c, 3)) * lever
     nrm = rng.normal(size=(n, c, 3))
     nrm = nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
     depth = rng.uniform(-0.01, 0.005, (n, c))

@@ -38,16 +38,18 @@ class CudaKernel:
 
     `name` names the library; `source` and `headers` are file names under
     `csrc/` (headers only enter the hash); `entry` is the C function and
-    `argtypes` its ctypes signature (it returns the CUDA error code).
+    `argtypes` its ctypes signature (it returns the CUDA error code);
+    `extra_flags` are nvcc flags beyond NVCC_FLAGS (they enter the hash).
     `info` records the build: path, seconds, cached, and the ptxas report."""
 
     def __init__(self, name: str, source: str, entry: str, argtypes: Sequence,
-                 headers: Sequence[str] = ()):
+                 headers: Sequence[str] = (), extra_flags: Sequence[str] = ()):
         self.name = name
         self.source = os.path.join(CSRC_DIR, source)
         self.headers = [os.path.join(CSRC_DIR, h) for h in headers]
         self.entry = entry
         self.argtypes = list(argtypes)
+        self.flags = [*NVCC_FLAGS, *extra_flags]
         self.info: dict = {}
         self._fn = None
 
@@ -56,7 +58,7 @@ class CudaKernel:
         for path in [self.source, *self.headers]:
             with open(path, "rb") as f:
                 h.update(f.read())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(self.flags).encode())
         return os.path.join(BUILD_DIR, f"lib{self.name}_{h.hexdigest()[:16]}.so")
 
     def _start(self):
@@ -67,7 +69,7 @@ class CudaKernel:
             return so, None, None, 0.0
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, self.source],
+        proc = subprocess.Popen([_nvcc(), *self.flags, "-I", CSRC_DIR, "-o", tmp, self.source],
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         return so, tmp, proc, time.perf_counter()
 
@@ -96,8 +98,11 @@ class CudaKernel:
         return self._fn
 
     def registers(self) -> list:
-        """The ptxas lines that report register use (empty for a cached build)."""
-        return [ln.strip() for ln in self.info.get("ptxas", "").splitlines() if "registers" in ln]
+        """The ptxas lines that report register use, and those that report
+        spills where there are any (empty for a cached build)."""
+        lines = [ln.strip() for ln in self.info.get("ptxas", "").splitlines()]
+        return [ln for ln in lines if "registers" in ln
+                or ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln)]
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> None:

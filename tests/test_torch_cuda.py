@@ -216,3 +216,121 @@ def test_sensor_step_on_the_card_matches_the_cpu(cuda_device):
     assert float(((o_gpu.img.cpu() - o_cpu.img).abs() > 6e-3).float().mean()) < 5e-3
     d = (o_gpu.tactile.cpu() - o_cpu.tactile).abs()
     assert float(d.mean()) < 0.012 and float((d > 0.08).float().mean()) < 5e-3
+
+
+# ------------------------------------------------ the kernels' edge cases
+
+
+def _edge_problem(n, c, device, seed=3):
+    """A contact set that stays bounded over the iterations (short lever arms),
+    with env 0 free of active contacts, every contact of env 1 active and a
+    third of env 2's inert by weight (where n allows)."""
+    mass, I_inv, v, w, cs = sk.random_problem(n, c, seed=seed, lever=0.01)
+    cs["depth"][0] = -np.abs(cs["depth"][0]) - 1e-4
+    if n > 1:
+        cs["depth"][1] = np.abs(cs["depth"][1]) + 1e-4
+    if n > 2:
+        cs["weight"][2, ::3] = 0.0
+    T = lambda x: torch.as_tensor(x, device=device)
+    return T(mass), T(I_inv), T(v), T(w), ContactSet(**{k: T(x) for k, x in cs.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(8, 255), (8, 37), (8, 200), (8, 256), (1, 255), (256, 255), (2, 1)])
+def test_cuda_solver_edge_cases(cuda_device, n, c):
+    """No active contact, every contact active, C not a multiple of 32, one
+    env, 256 envs: the kernel solves only the active contacts, and must agree
+    with the plain version that solves all of them."""
+    args = _edge_problem(n, c, cuda_device)
+    out = sk.solve_contacts_fused(*args, H)
+    torch.cuda.synchronize()
+    _assert_solver_tolerances(out, sk.solve_contacts_fused_plain(*args, H))
+    cs = args[4]
+    inert = ~((cs.depth > 0) & (cs.weight != 0))
+    assert not bool(out.lam_n[inert].any()) and not bool(out.lam_t[inert].any())
+    # env 0 has no active contact: it keeps its velocity, bit for bit
+    assert torch.equal(out.v[0], args[2][0]) and torch.equal(out.w[0], args[3][0])
+    assert not bool(out.dx[0].any()) and not bool(out.dth[0].any())
+    if n > 1:
+        assert int(((cs.depth[1] > 0) & (cs.weight[1] != 0)).sum()) == c
+        assert bool((out.lam_n[1] > 0).any())
+
+
+@pytest.mark.cuda
+def test_cuda_solver_is_deterministic(cuda_device):
+    """No atomics and a fixed order of summation: two launches on the same
+    inputs give bit-identical outputs."""
+    mass, I_inv, v, w, cs = sk.random_problem(256, 255, seed=8)
+    T = lambda x: torch.as_tensor(x, device=cuda_device)
+    args = (T(mass), T(I_inv), T(v), T(w), ContactSet(**{k: T(x) for k, x in cs.items()}))
+    a = sk.solve_contacts_fused(*args, H)
+    b = sk.solve_contacts_fused(*args, H)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def _tactile_rows(p, device, seed=11):
+    """12 packed-row inputs (two per section family, tilted cameras): the
+    first six ray origins inside the prism, the rest 2 cm below its base; p
+    pixels with a gel mask of zeros and ones."""
+    rng = np.random.default_rng(seed)
+    r = 12
+    oh = np.eye(6, dtype=np.float32)[np.arange(r) % 6]
+    hx = rng.uniform(0.008, 0.02, r).astype(np.float32)
+    hy = (hx * rng.uniform(0.8, 1.2, r)).astype(np.float32)
+    length = rng.uniform(0.03, 0.06, r).astype(np.float32)
+    o = np.stack([0.2 * hx, 0.1 * hy, np.full(r, -0.02)], -1).astype(np.float32)
+    o[:6] = np.stack([0.2 * hx[:6], -0.2 * hy[:6], 0.3 * length[:6]], -1)
+    # Rodrigues rotations by small random tilts
+    w = rng.normal(size=(r, 3)) * 0.3
+    th = np.linalg.norm(w, axis=-1)[:, None, None]
+    k = w / th[:, :, 0]
+    K = np.zeros((r, 3, 3))
+    K[:, 0, 1], K[:, 0, 2], K[:, 1, 0] = -k[:, 2], k[:, 1], k[:, 2]
+    K[:, 1, 2], K[:, 2, 0], K[:, 2, 1] = -k[:, 0], -k[:, 1], k[:, 0]
+    M = (np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)).astype(np.float32)
+    force = rng.uniform(0, 8, r).astype(np.float32)
+    rays = rng.normal(size=(p, 3)) * 0.6 + np.array([0.0, 0.0, 1.0])
+    rays = (rays / np.linalg.norm(rays, axis=-1, keepdims=True)).astype(np.float32)
+    mask = (rng.uniform(size=p) > 0.2).astype(np.float32)
+    T = lambda a: torch.as_tensor(a, device=device)
+    return [T(a) for a in (M, o, oh, hx, hy, length, force, rays)], T(mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1001, 1002, 4100, 64, 3])
+@pytest.mark.parametrize("exact", [True, False])
+def test_tactile_kernel_ragged_pixels_and_interior_origins(cuda_device, p, exact):
+    """A pixel count that is not a multiple of 4 (scalar loads and stores) or
+    of a block's pixels, rows whose origin is inside the prism (the interior
+    gradient) beside rows outside it, glow and a gel mask with holes."""
+    args, mask = _tactile_rows(p, cuda_device)
+    kw = dict(mask_flat=mask, glow=0.15, exact=exact, iters=12, max_range=0.06, max_deformation=0.01,
+              force_range=10.0)
+    out = rk.tactile_render(*args, **kw)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (12, p, 3)
+    ref = rk.tactile_render_plain(*args, **kw)
+    err = (out - ref).abs()
+    assert bool(torch.isfinite(out).all())
+    if p >= 64:
+        assert float((err > 1e-3).float().mean()) < 5e-3 and float(err[err <= 1e-3].max()) < 2e-4
+        assert float((out[:6] > 0.2).float().mean()) > 0.3      # interior origins are lit
+    else:
+        assert int((err > 1e-3).sum()) <= 1
+    assert not bool(out[:, mask == 0].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [None, "gauss", "ih4"])
+def test_tactile_kernel_is_deterministic(cuda_device, kind):
+    """Two launches on the same inputs (and, with noise, the same seed) give
+    bit-identical images."""
+    args, kw = _tactile_scene(16, 4, cuda_device)
+    nkw = dict(noise_std=0.01, noise_kind=kind) if kind else {}
+    draw = lambda: rk.tactile_render(
+        *args, **kw, **nkw, generator=insertion.make_generator(3, cuda_device) if kind else None)
+    a, b = draw(), draw()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)

@@ -191,3 +191,65 @@ def test_plain_noise_statistics():
         assert abs(float(resid.mean())) < 1e-3 and abs(float(resid.std()) - 0.01) < 5e-4, kind
     with pytest.raises(ValueError):
         rk.tactile_render(*a, **kw, generator=gen, noise_std=0.01, noise_kind="uniform")
+
+
+# ------------------------------------------------ what a pixel's result uses
+# The CUDA tactile kernel skips the normal, the lighting and the interior
+# gradient where no lane of a warp needs them. These cases hold the fact that
+# rests on, with the plain version: a pixel that missed the plug is
+# glow * mask whatever its normal would have been, and a pixel off the gel
+# (mask == 0) is 0 even where the ray hit.
+
+
+def _tactile_rows_case(seed, inside):
+    """12 rows (two per section family) with random camera rotations; the ray
+    origin 2 cm below the prism's base, or inside the prism."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    r, p = 12, 384
+    oh = np.eye(6, dtype=np.float32)[np.arange(r) % 6]
+    hx = rng.uniform(0.008, 0.02, r).astype(np.float32)
+    hy = (hx * rng.uniform(0.8, 1.2, r)).astype(np.float32)
+    length = rng.uniform(0.03, 0.06, r).astype(np.float32)
+    if inside:
+        o = np.stack([0.2 * hx, -0.2 * hy, 0.3 * length], -1).astype(np.float32)
+    else:
+        o = np.stack([0.2 * hx, 0.1 * hy, np.full(r, -0.02)], -1).astype(np.float32)
+    # small random tilts, so that the cone of rays around +z hits and misses
+    M = Rotation.from_rotvec(rng.normal(size=(r, 3)) * 0.3).as_matrix().astype(np.float32)
+    force = rng.uniform(0, 8, r).astype(np.float32)
+    rays = rng.normal(size=(p, 3)) * 0.6 + np.array([0.0, 0.0, 1.0])
+    rays = (rays / np.linalg.norm(rays, axis=-1, keepdims=True)).astype(np.float32)
+    mask = rng.choice(np.array([0.0, 0.5, 1.0], np.float32), size=p)
+    return [torch.as_tensor(a) for a in (M, o, oh, hx, hy, length, force, rays)], torch.as_tensor(mask)
+
+
+@pytest.mark.parametrize("inside", [False, True], ids=["origin_outside", "origin_inside"])
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "march"])
+def test_plain_tactile_missed_and_masked_pixels(inside, exact):
+    from isaacgyminsertion_tpu_torch.sensors import raycast as rc
+
+    args, mask = _tactile_rows_case(11, inside)
+    M, o, oh, hx, hy, length, force, rays = args
+    max_range, glow = 0.06, 0.15
+    img = rk.tactile_render_plain(*args, mask_flat=mask, glow=glow, exact=exact, iters=24,
+                                  max_range=max_range, max_deformation=0.01, force_range=10.0)
+    assert tuple(img.shape) == (12, 384, 3)
+    # the first hit, by the closed form, independent of the renderer
+    d = torch.einsum("rij,pj->rpi", M, rays)
+    hp, quad = rc.section_halfplanes(oh, hx, hy)
+    col = lambda x: x[:, None]
+    t_hit = rc.plug_hit(col(o[:, 0]), col(o[:, 1]), col(o[:, 2]), d[..., 0], d[..., 1], d[..., 2],
+                        hp[:, None], quad[:, None], col(length))
+    missed = t_hit > max_range + 1e-3          # clear misses only
+    clear_hit = t_hit < max_range - 5e-3
+    expect = (glow * mask)[None, :, None].expand_as(img)
+    if inside:
+        assert bool(clear_hit.all())            # from inside the prism every ray is lit
+    else:
+        assert int(missed.sum()) > 200 and int(clear_hit.sum()) > 200
+        assert torch.equal(img[missed], expect[missed])
+    lit = clear_hit & (mask[None, :] > 0)
+    assert float((img[lit].max(-1).values - expect[lit][:, 0]).mean()) > 0.05     # hits are brighter
+    assert not bool(img[:, mask == 0].any())                                       # off the gel: 0
