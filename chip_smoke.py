@@ -17,7 +17,10 @@ Phases, in order; any failure exits nonzero without printing a result:
      - tactile_render (R = 768 rows × 4096 pixels) and camera_render (N = 256
        envs × 5184 pixels), closed-form variant: inputs captured from a
        sensors-on env a few steps after reset, and one random set; the march
-       variant at a small shape. Noise off: fails if any output is not
+       variant at a small shape; the camera's exact kernel also on the scenes
+       it branches on (every section family, the robot proxy in view and
+       parked, tilted frames, P not a multiple of 4, a ray table off 16-byte
+       alignment: capture.camera_edge_cases). Noise off: fails if any output is not
        finite or more than 0.5 % of the pixels differ by more than 1e-3
        (silhouette flips); component ids equal off those pixels. Noise on
        (both kinds): outputs finite and in [0, 1], residual against the
@@ -36,7 +39,9 @@ Phases, in order; any failure exits nonzero without printing a result:
      render_capacity=0.75 to drive the gathered render-on-demand path;
   7. times: each kernel and its plain version on CUDA events, beside the
      least time the card could take (bytes or f32 operations at the published
-     H100 SXM peaks). The solver is timed at 1024 and at 256 envs, on the
+     H100 SXM peaks; operations counted for what this run's data needs: the
+     solver's active contacts, the half-planes and quadratic of each row's
+     section family). The solver is timed at 1024 and at 256 envs, on the
      captured and on the random contact set; the renderers on packed rows with
      the L2 cache flushed before each launch.
 Launch counts are zeroed just before each main path and read just after. The
@@ -123,6 +128,8 @@ def _compare_images(name, out, ref, ids=()):
         raise PhaseError(f"{name}: {share:.4%} of the pixels differ by more than 1e-3 "
                          f"(max {float(err.max()):.3e})")
     for k_ids, p_ids in ids:
+        if not bool(torch.isfinite(k_ids).all()):
+            raise PhaseError(f"{name}: a kernel id plane is not finite")
         off = float(((k_ids != p_ids) & ~flipped).float().mean())
         if off > 1e-4:
             raise PhaseError(f"{name}: ids differ on {off:.4%} of the pixels off the flipped ones")
@@ -192,8 +199,10 @@ def main():
     build_all(kernels_src)
     print(f"build: {len(kernels_src)} kernels in {time.perf_counter() - t0:.2f} s", flush=True)
     for k in kernels_src:
+        spills = [ln for ln in k.registers() if "spill" in ln]
         print(f"build: {k.name} {k.info['seconds']:.2f} s "
-              f"({'cached' if k.info.get('cached') else 'nvcc'}); {'; '.join(k.registers())}", flush=True)
+              f"({'cached' if k.info.get('cached') else 'nvcc'}); registers by entry function "
+              f"{k.register_counts()}; {'; '.join(spills) or 'no spill'}", flush=True)
 
     # ------------------------------------------------------ 3. kernel vs plain
     T = lambda a: torch.as_tensor(a, device=dev)
@@ -268,6 +277,16 @@ def main():
             errs[("camera", label)] = e
             counts = torch.bincount(kc.long().flatten(), minlength=4).tolist()
             print(f"kernel vs plain: camera_render exact N={a[0].shape[0]} P={a[14].shape[0]} ({label}): "
+                  f"max_abs_err {e:.3e}, {share:.5%} of pixels flipped, component pixels "
+                  f"table/plug/socket/robot {counts}", flush=True)
+        # the scenes on whose edges the exact camera kernel branches
+        for label, scal, k_rays, rays, ckw in capture.camera_edge_cases(dev):
+            kt, kd, kc = rk.camera_rows_cuda(scal, k_rays, **ckw)
+            torch.cuda.synchronize()
+            pt, pd, pc = rk.camera_rows_plain(scal, rays, **ckw)
+            e, share = _compare_images(f"camera_render exact, {label}", kt, pt, [(kc, pc), (kd, pd)])
+            counts = torch.bincount(kc.long().flatten(), minlength=4).tolist()
+            print(f"kernel vs plain: camera_render exact N={scal.shape[0]} P={rays.shape[1]} ({label}): "
                   f"max_abs_err {e:.3e}, {share:.5%} of pixels flipped, component pixels "
                   f"table/plug/socket/robot {counts}", flush=True)
         # the march variants at a small shape
@@ -399,7 +418,7 @@ def main():
         row(sk.KERNEL_NAME, "contact_solver.cu", "isaacgyminsertion_tpu/physics/solver_pallas.py:40",
             launches.get("contact_solver", 0), err_real, solver_ms,
             time_ms(lambda: sk.solve_contacts_fused_plain(*real_args, H), reps=5, warmup=1),
-            sk.flops(n, c), sk.bytes_moved(n, c))
+            sk.flops(n, c, active=int(k_env.sum())), sk.bytes_moved(n, c))
         real_small = capture.substep_problem(cfg, model, subs, STUDENT_ENVS, H, dev)
         print(f"times: contact_solver env substep {N_ENVS} envs {solver_ms:.4f} ms, "
               f"{STUDENT_ENVS} envs {solve(real_small):.4f} ms; random set {N_ENVS} envs "
@@ -414,14 +433,18 @@ def main():
             time_ms(lambda: rk.tactile_rows_cuda(*t_rows, **t_rkw, **noise_kw), reps=30, flush=flush),
             time_ms(lambda: rk.tactile_rows_plain(*t_rows, **t_rkw, **noise_kw), reps=5, warmup=1,
                     flush=flush),
-            rk.tactile_flops(r, p, exact=True, noise_kind="gauss"), rk.tactile_bytes_moved(r, p))
+            rk.tactile_flops(t_rows[0], p, exact=True, noise_kind="gauss"), rk.tactile_bytes_moved(r, p))
         c_rows, c_rkw = capture.camera_packed(c_args, c_kw)
         n, p = c_rows[0].shape[0], c_rows[1].shape[1]
         row("camera_render", "camera_render.cu", "isaacgyminsertion_tpu/sensors/render_pallas.py:388",
             launches.get("camera_render", 0), errs[("camera", "env state")],
             time_ms(lambda: rk.camera_rows_cuda(*c_rows, **c_rkw), reps=30, flush=flush),
             time_ms(lambda: rk.camera_rows_plain(*c_rows, **c_rkw), reps=5, warmup=1, flush=flush),
-            rk.camera_flops(n, p, exact=True), rk.camera_bytes_moved(n, p))
+            rk.camera_flops(c_rows[0], p, exact=True), rk.camera_bytes_moved(n, p))
+        cr_rows, cr_rkw = capture.camera_packed(cr_args, cr_kw)
+        print(f"times: camera_render random scene {cr_rows[0].shape[0]} envs x {cr_rows[1].shape[1]} px "
+              f"{time_ms(lambda: rk.camera_rows_cuda(*cr_rows, **cr_rkw), reps=30, flush=flush):.4f} ms",
+              flush=True)
     if opts.kernels_only:
         print(json.dumps({"kernels": kernel_rows}), flush=True)
         print("kernels only: the main paths were skipped, no result line", flush=True)

@@ -1,6 +1,6 @@
-"""What holds the contact solver and the tactile renderer back on the card.
+"""What holds the hand-written kernels back on the card.
 
-    python -m isaacgyminsertion_tpu_torch.kernel_ablation [--kernel solver|tactile|all]
+    python -m isaacgyminsertion_tpu_torch.kernel_ablation [--kernel solver|tactile|camera|all]
 
 The card's machine has no kernel profiler, so the question is answered by
 ablation: each variant below is the shipped CUDA source with a few lines
@@ -8,9 +8,12 @@ replaced (a pass removed, a division replaced, another number of pixels per
 thread or warps per block), built beside the shipped kernel and timed on CUDA
 events on the inputs the main path gives the kernel: the contact problem of a
 real physics substep at 1024 and at 256 envs and the random contact set (one
-third of the contacts active), and the packed tactile rows of a sensors-on env
-three steps after reset (768 rows x 4096 pixels, L2 flushed before every
-launch). The shipped sources carry no switch: the variants live only here, as
+third of the contacts active); the packed tactile rows (768 rows x 4096
+pixels) and camera rows (256 envs x 5184 pixels) of a sensors-on env three
+steps after reset, and for the camera also a random scene of 256 envs; the
+renderers with the L2 flushed before every launch. `--kernel camera` also
+times the shipped march variants (exact=False) of both renderers at those
+shapes. The shipped sources carry no switch: the variants live only here, as
 text replacements that must match the source exactly (a replacement that no
 longer matches fails the run, so the table cannot go stale silently).
 
@@ -114,6 +117,38 @@ TACTILE_VARIANTS = [
     ("256 threads per block", [(_THREADS, "#define TACTILE_THREADS 256", 1)], []),
 ]
 
+_CAM_SCALAR = ("const bool vec = p.vec_ok != 0;", "constexpr bool vec = false;", 1)
+_CAM_VEC = "#define CAMERA_VEC 4"
+_CAM_THREADS = "#define CAMERA_THREADS 128"
+_CAM_BOUNDS = "__global__ void __launch_bounds__(CAMERA_THREADS)\ncamera_exact_kernel"
+
+
+CAMERA_VARIANTS = [
+    ("shipped", [], []),
+    ("at most 48 registers (10 blocks per SM)",
+     [(_CAM_BOUNDS, _CAM_BOUNDS.replace("(CAMERA_THREADS)", "(CAMERA_THREADS, 10)"), 1)], []),
+    ("IEEE division and sqrtf", [_IEEE], []),
+    ("neutral half-plane slots and inactive quadratic not skipped",
+     [("if (!((used >> j) & 1)) continue;   // block-uniform", "", 1),
+      ("if (T.qact) {   // block-uniform", "if (true) {", 1)], []),
+    ("no warp-vote skips", [("#define WARP_ANY(x) __any_sync(0xffffffffu, (x))", "#define WARP_ANY(x) true", 1)],
+     []),
+    ("no plug bounding-sphere vote (the other votes kept)",
+     [("any = any || b * b - R.bs_cc > 0.0f;", "any = true;", 1)], []),
+    ("no plate bounding-sphere vote (the other votes kept)",
+     [("near = near || b * b - R.bp_cc > 0.0f;", "near = true;", 1)], []),
+    ("no robot proxy (wrong: prices the proxy stage)",
+     [("for (int k = 0; k < 5; ++k) {", "for (int k = 0; k < 0; ++k) {", 1),
+      ("{   // the cylinder segment from a to b", "if (false) {", 1)], []),
+    ("no plug (wrong: prices the plug stage)", [("any = any || b * b - R.bs_cc > 0.0f;", "", 1)], []),
+    ("no socket (wrong: prices the socket stage)", [("near = near || b * b - R.bp_cc > 0.0f;", "", 1)], []),
+    ("scalar loads and stores, 4 pixels per thread", [_CAM_SCALAR], []),
+    ("scalar loads and stores, 2 pixels per thread", [_CAM_SCALAR, (_CAM_VEC, "#define CAMERA_VEC 2", 1)], []),
+    ("scalar loads and stores, 1 pixel per thread", [_CAM_SCALAR, (_CAM_VEC, "#define CAMERA_VEC 1", 1)], []),
+    ("64 threads per block", [(_CAM_THREADS, "#define CAMERA_THREADS 64", 1)], []),
+    ("256 threads per block", [(_CAM_THREADS, "#define CAMERA_THREADS 256", 1)], []),
+]
+
 
 def _variant_kernels(shipped: CudaKernel, variants, tag):
     """One CudaKernel per variant, its source written under the build directory."""
@@ -138,8 +173,9 @@ def _variant_kernels(shipped: CudaKernel, variants, tag):
     return kernels
 
 
-def _registers(k: CudaKernel) -> int:
-    regs = [int(ln.split("Used ")[1].split(" registers")[0]) for ln in k.registers() if "Used " in ln]
+def _registers(k: CudaKernel, kernel: str = "") -> int:
+    """The most registers a kernel of the build uses (those whose name holds `kernel`)."""
+    regs = [r for name, r in k.register_counts().items() if kernel in name]
     return max(regs) if regs else -1
 
 
@@ -179,17 +215,34 @@ def ablate_solver(dev):
     return rows
 
 
+_SCENES = {}
+
+
+def _render_scenes(dev):
+    """The renderers' (args, kwargs) on a sensors-on env of 256 envs three steps
+    after reset, and on a random scene of 256 envs (built once per run)."""
+    if not _SCENES:
+        cfg_s = capture.sensors_on(default_task_config())
+        model = build_kuka_openhand()
+        state, _, _ = capture.sensor_state(cfg_s, model, build_subassembly_set(), 256, dev)
+        with torch.no_grad():
+            _SCENES["env"] = capture.sensor_inputs(model, state)
+            _SCENES["random"] = capture.random_scene(256, 7, dev)
+    return _SCENES
+
+
+def _flush(dev):
+    return torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=dev)   # 1 GB: 20 x L2
+
+
 def ablate_tactile(dev):
     from .envs import insertion
 
-    cfg_s = capture.sensors_on(default_task_config())
-    model, subs = build_kuka_openhand(), build_subassembly_set()
-    state, _, _ = capture.sensor_state(cfg_s, model, subs, 256, dev)
+    (t_args, t_kw), _ = _render_scenes(dev)["env"]
     with torch.no_grad():
-        (t_args, t_kw), _ = capture.sensor_inputs(model, state)
         rows_in, kw = capture.tactile_packed(t_args, t_kw)
         ref = rk.tactile_rows_plain(*rows_in, **kw)
-    flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=dev)   # 1 GB: 20 x L2
+    flush = _flush(dev)
     kernels = _variant_kernels(rk.TACTILE_KERNEL, TACTILE_VARIANTS, "tactile")
     build_all(kernels)
     shipped, rows = rk.TACTILE_KERNEL, []
@@ -218,9 +271,74 @@ def ablate_tactile(dev):
     return rows
 
 
+def ablate_camera(dev):
+    scenes = _render_scenes(dev)
+    sets, refs = {}, {}
+    with torch.no_grad():
+        for key in ("env", "random"):
+            _, (c_args, c_kw) = scenes[key]
+            sets[key] = capture.camera_packed(c_args, c_kw)
+            refs[key] = rk.camera_rows_plain(*sets[key][0], **sets[key][1])
+    flush = _flush(dev)
+    kernels = _variant_kernels(rk.CAMERA_KERNEL, CAMERA_VARIANTS, "camera")
+    build_all(kernels)
+    shipped, rows = rk.CAMERA_KERNEL, []
+    try:
+        for (name, _, _), k in zip(CAMERA_VARIANTS, kernels):
+            rk.CAMERA_KERNEL = k
+            row = dict(variant=name, registers=_registers(k, "camera_exact_kernel"))
+            for key, (rows_in, kw) in sets.items():
+                row[f"ms_{key}"] = capture.cuda_time_ms(lambda: rk.camera_rows_cuda(*rows_in, **kw), reps=30,
+                                                        flush=flush)
+                kt, kd, kc = rk.camera_rows_cuda(*rows_in, **kw)
+                torch.cuda.synchronize()
+                pt, pd, pc = refs[key]
+                err = (kt - pt).abs()
+                flipped = err > 1e-3
+                row[f"flipped_share_{key}"] = float(flipped.float().mean())
+                row[f"max_abs_err_{key}"] = float(err[~flipped].max())
+                row[f"ids_off_{key}"] = float((((kc != pc) | (kd != pd)) & ~flipped).float().mean())
+            rows.append(row)
+            print(f"camera: {name}: {row['registers']} registers; env state {row['ms_env']:.4f} ms, random "
+                  f"{row['ms_random']:.4f} ms; env max_abs_err {row['max_abs_err_env']:.3e}, "
+                  f"{row['flipped_share_env']:.5%} flipped, ids off {row['ids_off_env']:.5%}; random "
+                  f"{row['flipped_share_random']:.5%} flipped, ids off {row['ids_off_random']:.5%}", flush=True)
+    finally:
+        rk.CAMERA_KERNEL = shipped
+    return rows
+
+
+def time_march(dev):
+    """The shipped march variants (exact=False) of both renderers at the main
+    path's shapes, on the env state, L2 flushed: times only."""
+    from .envs import insertion
+
+    (t_args, t_kw), (c_args, c_kw) = _render_scenes(dev)["env"]
+    t_rows, t_kw2 = capture.tactile_packed(t_args, t_kw)
+    c_rows, c_kw2 = capture.camera_packed(c_args, c_kw)
+    flush = _flush(dev)
+    gen = insertion.make_generator(9, dev)
+    out = dict(
+        tactile_iters=t_kw2["iters"], camera_iters=c_kw2["iters"],
+        tactile_march_gauss_ms=capture.cuda_time_ms(
+            lambda: rk.tactile_rows_cuda(*t_rows, **t_kw2, exact=False, generator=gen, noise_std=0.01),
+            reps=30, flush=flush),
+        tactile_exact_gauss_ms=capture.cuda_time_ms(
+            lambda: rk.tactile_rows_cuda(*t_rows, **t_kw2, generator=gen, noise_std=0.01), reps=30, flush=flush),
+        camera_march_ms=capture.cuda_time_ms(lambda: rk.camera_rows_cuda(*c_rows, **c_kw2, exact=False),
+                                             reps=30, flush=flush),
+        camera_exact_ms=capture.cuda_time_ms(lambda: rk.camera_rows_cuda(*c_rows, **c_kw2), reps=30,
+                                             flush=flush))
+    print(f"march: tactile {t_rows[0].shape[0]} rows x {t_rows[1].shape[1]} px, {out['tactile_iters']} trips, "
+          f"Gauss noise: {out['tactile_march_gauss_ms']:.4f} ms (exact {out['tactile_exact_gauss_ms']:.4f}); "
+          f"camera {c_rows[0].shape[0]} envs x {c_rows[1].shape[1]} px, {out['camera_iters']} trips: "
+          f"{out['camera_march_ms']:.4f} ms (exact {out['camera_exact_ms']:.4f})", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=["solver", "tactile", "all"], default="all")
+    ap.add_argument("--kernel", choices=["solver", "tactile", "camera", "all"], default="all")
     ap.add_argument("--out", default=None, help="also write the JSON object to this file")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -236,6 +354,9 @@ def main(argv=None):
         result["solver"] = ablate_solver(dev)
     if opts.kernel in ("tactile", "all"):
         result["tactile"] = ablate_tactile(dev)
+    if opts.kernel in ("camera", "all"):
+        result["camera"] = ablate_camera(dev)
+        result["march"] = time_march(dev)
     print(json.dumps(result), flush=True)
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)

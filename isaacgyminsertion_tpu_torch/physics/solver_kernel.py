@@ -32,15 +32,19 @@ launch_count = 0
 # division, a sqrt, a min/max and a select count as one each): a velocity
 # iteration is the normal pass (48) plus the friction pass (105); a position
 # iteration is 44; the masks and effective masses of both phases are 21. The
-# per-env scalar updates and the cross-lane reductions are not counted.
+# per-env scalar updates and the cross-lane reductions are not counted. Only
+# the active contacts (depth > 0 and weight != 0) are iterated: an inert one
+# adds exact zeros to every sum, so the function needs only its mask.
 FLOPS_PER_VEL_ITER = 153
 FLOPS_PER_POS_ITER = 44
 FLOPS_SETUP = 21
 
 
-def flops(n: int, c: int, iters: int = 16, pos_iters: int = 8) -> int:
-    """f32 operations one launch does on N envs × C contacts."""
-    return n * c * (FLOPS_SETUP + iters * FLOPS_PER_VEL_ITER + pos_iters * FLOPS_PER_POS_ITER)
+def flops(n: int, c: int, active: int | None = None, iters: int = 16, pos_iters: int = 8) -> int:
+    """f32 operations one launch does on N envs × C contacts, `active` of them
+    active (all when None)."""
+    active = n * c if active is None else active
+    return n * c * FLOPS_SETUP + active * (iters * FLOPS_PER_VEL_ITER + pos_iters * FLOPS_PER_POS_ITER)
 
 
 def bytes_moved(n: int, c: int) -> int:

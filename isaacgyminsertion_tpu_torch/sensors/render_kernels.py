@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from ..assets import SOCKET_PLATE_HX, SOCKET_PLATE_HY
 from ..ops import sdf as sdfm
 from ..utils.cuda_build import CudaKernel
 from . import raycast as rc
@@ -63,28 +64,53 @@ _LIGHTS = (
 # f32 operations per pixel, counted from the kernels' sources (an add, a mul,
 # a division, a sqrt, an abs, a min/max, a compare and a select count as one
 # each; log, sin and cos as one each; the Philox integer rounds are not counted).
-# A half-plane interval is 16; a half-plane of the tactile sweep (two dot
-# products, the interval, the normal's compare and selects, max, min) is 27.
-# tactile exact = direction 15 + 6 half-planes × 27 + quadratic 48 + z-slab 36
-#   + hit and entry normal 17 + interior gradient 113 + normalize 11
-#   + hit/indent/height 14 + shading 57 + mask, glow and clip 16 = 489;
-# camera exact = directions 35 + 2 packed sections × 181 + z-slab 36 + plug 5
-#   + socket 124 + table 9 + 5 spheres 115 + cylinder 64 + select 13 = 763.
-# The march figures are rough (an SDF evaluation costs 30 to 70 by family).
-TACTILE_FLOPS_EXACT = 489
+# A packed section counts only the half-plane slots and the quadratic its
+# env's family uses (a circle or an ellipse the quadratic, a box or a
+# trapezoid 4 half-planes, a triangle 3, a hexagon 6): a neutral slot or an
+# inactive quadratic is no part of the function. A half-plane interval is 16.
+# tactile exact = direction 15 + z-slab 36 + hit and entry normal 17
+#   + hit point and cap of the interior gradient 15 + normalize 11
+#   + hit/indent/height 14 + shading 57 + mask, glow and clip 16 = 181,
+#   + per half-plane 35 (the sweep's two dot products, interval, normal's
+#   compare and selects, max, min: 27; its interior-gradient term: 8)
+#   + the quadratic 98 (sweep 48, interior gradient 50);
+# camera exact = directions 35 + z-slab 36 + plug 5 + socket 124 + table 9
+#   + 5 spheres 115 + cylinder 64 + select 13 = 401, + per half-plane of the
+#   plug and of the hole 24 (two dot products, interval, max, min)
+#   + each of their quadratics 37.
+# With every slot and the quadratic counted (the dense count): tactile 489,
+# camera 763. The march figures are rough (an SDF evaluation costs 30 to 70
+# by family).
+TACTILE_FLOPS_FIXED = 181
+TACTILE_FLOPS_HALFPLANE = 35
+TACTILE_FLOPS_QUAD = 98
 TACTILE_FLOPS_GAUSS = 31
 TACTILE_FLOPS_IH4 = 45
 TACTILE_FLOPS_SDF = 60      # one plug_sdf evaluation and its march update
-CAMERA_FLOPS_EXACT = 763
+CAMERA_FLOPS_FIXED = 401
+CAMERA_FLOPS_HALFPLANE = 24
+CAMERA_FLOPS_QUAD = 37
 CAMERA_FLOPS_SCENE = 220    # one scene evaluation of the march variant
 
 
-def tactile_flops(rows: int, pixels: int, exact: bool = True, iters: int = 12,
+def _section_flops(scal, at, per_halfplane, per_quad):
+    """[rows] operations of the packed section at column `at` of each row:
+    its used (non-neutral) half-plane slots and its quadratic if active."""
+    hp = scal[:, at:at + 3 * rc.HP_SLOTS].reshape(-1, rc.HP_SLOTS, 3)
+    used = ((hp[..., 0] != 0) | (hp[..., 1] != 0)).sum(dim=1)
+    active = scal[:, at + 3 * rc.HP_SLOTS + 2] > 0.5
+    return used * per_halfplane + active * per_quad
+
+
+def tactile_flops(scal, pixels: int, exact: bool = True, iters: int = 12,
                   noise_kind: str | None = "gauss") -> int:
-    """f32 operations one tactile launch does."""
-    per = TACTILE_FLOPS_EXACT if exact else 137 + (iters + 5) * TACTILE_FLOPS_SDF
-    per += {None: 0, "gauss": TACTILE_FLOPS_GAUSS, "ih4": TACTILE_FLOPS_IH4}[noise_kind]
-    return rows * pixels * per
+    """f32 operations one tactile launch does on the packed rows `scal` [R, TACTILE_ROW]."""
+    rows = scal.shape[0]
+    noise = {None: 0, "gauss": TACTILE_FLOPS_GAUSS, "ih4": TACTILE_FLOPS_IH4}[noise_kind]
+    if not exact:
+        return rows * pixels * (137 + (iters + 5) * TACTILE_FLOPS_SDF + noise)
+    sections = _section_flops(scal, 22, TACTILE_FLOPS_HALFPLANE, TACTILE_FLOPS_QUAD)
+    return pixels * (rows * (TACTILE_FLOPS_FIXED + noise) + int(sections.sum()))
 
 
 def tactile_bytes_moved(rows: int, pixels: int) -> int:
@@ -92,9 +118,14 @@ def tactile_bytes_moved(rows: int, pixels: int) -> int:
     return 4 * (rows * TACTILE_ROW + 3 * pixels + pixels + 3 * rows * pixels)
 
 
-def camera_flops(envs: int, pixels: int, exact: bool = True, iters: int = 24) -> int:
-    """f32 operations one camera launch does."""
-    return envs * pixels * (CAMERA_FLOPS_EXACT if exact else 35 + (iters + 1) * CAMERA_FLOPS_SCENE)
+def camera_flops(scal, pixels: int, exact: bool = True, iters: int = 24) -> int:
+    """f32 operations one camera launch does on the packed rows `scal` [N, CAMERA_ROW]."""
+    envs = scal.shape[0]
+    if not exact:
+        return envs * pixels * (35 + (iters + 1) * CAMERA_FLOPS_SCENE)
+    sections = (_section_flops(scal, 56, CAMERA_FLOPS_HALFPLANE, CAMERA_FLOPS_QUAD)
+                + _section_flops(scal, 77, CAMERA_FLOPS_HALFPLANE, CAMERA_FLOPS_QUAD))
+    return pixels * (envs * CAMERA_FLOPS_FIXED + int(sections.sum()))
 
 
 def camera_bytes_moved(envs: int, pixels: int) -> int:
@@ -551,4 +582,64 @@ def random_camera_inputs(n: int, seed: int = 0):
                           + np.array([0.0, 0.0, 0.06])),
               wrist_pos=f32(plug_pos + np.array([0.0, 0.0, 0.25])),
               hand_pos=f32(plug_pos + np.array([0.0, 0.0, 0.12])), tip_radius=0.012, hand_radius=0.032)
+    return args, kw
+
+
+def camera_edge_inputs(n: int = 6, proxy: bool = True, tilt: float = 0.0, seed: int = 0,
+                       height: int = 16, width: int = 24):
+    """Camera scenes on the edges the CUDA kernel branches on, as numpy arrays
+    → (args, kwargs) of `camera_render` (frames, not poses): env k has section
+    family k % 6, so both quadratic cases and every half-plane count occur. The
+    camera looks straight down on the plug and on the socket plate beside it;
+    with `tilt` = 0 the frames are exact axis flips and the middle ray column
+    and row have x = 0 and y = 0 exactly, so a ray parallel to a half-plane
+    face or a plate slab takes the |u.d| < eps branch. With `proxy` the robot
+    proxy is in view: a capsule across the line of sight occludes the plug, one
+    fingertip is in front of the camera and one wholly behind it; without, the
+    proxy is parked. `tilt` (radians) turns each env's frames by a random
+    small rotation."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: np.asarray(a, np.float32)
+    xs = np.linspace(-0.2, 0.2, width)
+    ys = np.linspace(-0.16, 0.16, height)
+    xs[width // 2], ys[height // 2] = 0.0, 0.0
+    yy, xx = np.meshgrid(ys, xs, indexing="ij")
+    d = np.stack([xx, yy, np.ones_like(xx)], -1).reshape(-1, 3)
+    rays = d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+    flip = np.diag([1.0, -1.0, -1.0])            # camera +z looks down the shapes' -z
+    def turned():
+        w = rng.normal(size=3) * tilt
+        th = np.linalg.norm(w)
+        if th == 0.0:
+            return flip
+        k = w / th
+        K = np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]], [-k[1], k[0], 0.0]])
+        return (np.eye(3) + np.sin(th) * K + (1.0 - np.cos(th)) * (K @ K)) @ flip
+
+    phx = rng.uniform(0.008, 0.015, n)
+    phy = phx * rng.uniform(0.8, 1.2, n)
+    length = rng.uniform(0.03, 0.05, n)
+    o_plug = np.stack([rng.uniform(-0.006, 0.006, n), rng.uniform(-0.006, 0.006, n),
+                       rng.uniform(0.26, 0.3, n)], -1)
+    o_sock = np.stack([rng.uniform(0.02, 0.04, n), rng.uniform(-0.01, 0.01, n),
+                       rng.uniform(0.32, 0.34, n)], -1)
+    args = (f32([turned() for _ in range(n)]), f32(o_plug), f32([turned() for _ in range(n)]), f32(o_sock),
+            f32(np.tile([0.0, 0.0, -1.0], (n, 1))), f32(np.full(n, 0.35)), f32(np.eye(6)[np.arange(n) % 6]),
+            f32(phx), f32(phy), f32(length), f32(phx * 1.05), f32(phy * 1.05), f32(np.full(n, 0.02)),
+            f32(np.zeros(n)), f32(rays))
+    kw = dict(iters=24, near=0.1, far=0.5, plate_hx=float(SOCKET_PLATE_HX),
+              plate_hy=float(SOCKET_PLATE_HY), tip_radius=0.012,
+              hand_radius=0.004)
+    if proxy:
+        # the plug's centre in the camera frame (of the untilted frames: the flip is its own inverse)
+        centre = o_plug * np.array([-1.0, 1.0, 1.0]) - np.array([0.0, 0.0, 1.0]) * length[:, None] / 2
+        # a capsule 6 cm long, 15 cm from the camera, across half of the plug's section
+        mid = np.stack([centre[:, 0], centre[:, 1] + phy, np.full(n, 0.15)], -1)
+        kw.update(tips_cam=f32(np.stack([centre + np.array([0.02, 0.02, -0.08]),
+                                         np.tile([0.0, 0.0, -0.05], (n, 1)),      # wholly behind
+                                         centre + np.array([-0.03, 0.02, -0.03])], 1)),
+                  wrist_cam=f32(mid - np.array([0.03, 0.0, 0.0])), hand_cam=f32(mid + np.array([0.03, 0.0, 0.0])))
     return args, kw

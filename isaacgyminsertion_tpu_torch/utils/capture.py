@@ -105,6 +105,36 @@ def camera_packed(c_args, c_kw):
     return rows, {k: v for k, v in c_kw.items() if k not in proxy}
 
 
+_PROXY = ("tips_cam", "wrist_cam", "hand_cam")
+
+
+def camera_edge_cases(dev):
+    """The scenes on whose edges the camera kernel branches, as packed rows →
+    [(label, scal, rays for the kernel, rays for the plain version, keywords)]:
+    one env per section family with the robot proxy in view (a capsule across
+    the plug, a fingertip wholly behind the camera) and parked, tilted frames,
+    a pixel count that is not a multiple of 4 and a ray table 4 bytes off
+    16-byte alignment (both take the kernel's scalar loads and stores)."""
+    T = lambda a: torch.as_tensor(a, device=dev)
+    cases = []
+    for label, n, proxy, tilt, pixels in (
+            ("six families, proxy in view", 6, True, 0.0, None),
+            ("six families, proxy parked", 6, False, 0.0, None),
+            ("six families x2, tilted frames, proxy in view", 12, True, 0.1, None),
+            ("P = 383, not a multiple of 4", 6, True, 0.0, 383)):
+        args, kw = rk.camera_edge_inputs(n, proxy=proxy, tilt=tilt)
+        args = [T(a) for a in args]
+        args[14] = args[14][:pixels].contiguous()
+        scal, rays = rk.camera_rows(*args, **{k: (T(kw[k]) if k in kw else None) for k in _PROXY})
+        rest = {k: v for k, v in kw.items() if k not in _PROXY}
+        cases.append((label, scal, rays, rays, rest))
+    _, scal, rays, _, rest = cases[0]
+    buf = torch.zeros(rays.numel() + 1, device=dev)
+    buf[1:].copy_(rays.reshape(-1))
+    cases.append(("ray table 4 bytes off 16-byte alignment", scal, buf[1:].view(rays.shape), rays, rest))
+    return cases
+
+
 SPIN_CYCLES = 1_000_000   # ~0.5 ms of a spin kernel that touches no memory
 
 

@@ -104,6 +104,16 @@ class CudaKernel:
         return [ln for ln in lines if "registers" in ln
                 or ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln)]
 
+    def register_counts(self) -> dict:
+        """{entry function, as ptxas names it: registers} (empty for a cached build)."""
+        counts, entry = {}, "?"
+        for ln in self.info.get("ptxas", "").splitlines():
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1]
+            elif "Used " in ln and " registers" in ln:
+                counts[entry] = int(ln.split("Used ")[1].split(" registers")[0])
+        return counts
+
 
 def build_all(kernels: Sequence[CudaKernel]) -> None:
     """Build several kernels at once: every nvcc is started before any is waited for."""

@@ -20,6 +20,7 @@ from isaacgyminsertion_tpu_torch.physics.solver import ContactSet
 from isaacgyminsertion_tpu_torch.sensors import camera as cam_mod
 from isaacgyminsertion_tpu_torch.sensors import render_kernels as rk
 from isaacgyminsertion_tpu_torch.sensors import tactile as tact_mod
+from isaacgyminsertion_tpu_torch.utils import capture
 
 H = 1.0 / 180.0
 
@@ -153,15 +154,29 @@ def test_tactile_kernel_noise(cuda_device, kind):
     assert abs(float(torch.corrcoef(r.T)[0, 1])) < 0.02
 
 
+_EDGE_CASES = 5   # capture.camera_edge_cases
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,exact", [(1, True), (6, True), (256, True), (6, False)])
-def test_camera_kernel_matches_plain(cuda_device, n, exact):
-    args, kw = _camera_scene(n, 5, cuda_device)
+@pytest.mark.parametrize("scene,n,exact",
+                         [("random", 1, True), ("random", 6, True), ("random", 256, True), ("random", 6, False)]
+                         + [(f"edge{k}", 0, True) for k in range(_EDGE_CASES)] + [("edge0", 0, False)])
+def test_camera_kernel_matches_plain(cuda_device, scene, n, exact):
+    """Random scenes through the dispatching wrapper, and the scenes the exact
+    kernel branches on (`capture.camera_edge_cases`: every section family, the
+    proxy in view and parked, tilted frames, P not a multiple of 4, a ray
+    table off 16-byte alignment) through the packed-row wrapper."""
     before = rk.camera_launch_count
-    kt, kd, kc = rk.camera_render(*args, **kw, exact=exact)
+    if scene == "random":
+        args, kw = _camera_scene(n, 5, cuda_device)
+        kt, kd, kc = rk.camera_render(*args, **kw, exact=exact)
+        pt, pd, pc = rk.camera_render_plain(*args, **kw, exact=exact)
+    else:
+        _, scal, k_rays, rays, kw = capture.camera_edge_cases(cuda_device)[int(scene[4:])]
+        kt, kd, kc = rk.camera_rows_cuda(scal, k_rays, **kw, exact=exact)
+        pt, pd, pc = rk.camera_rows_plain(scal, rays, **kw, exact=exact)
     torch.cuda.synchronize()
     assert rk.camera_launch_count == before + 1
-    pt, pd, pc = rk.camera_render_plain(*args, **kw, exact=exact)
     flipped = _assert_images(kt, pt)
     assert float(((kc != pc) & ~flipped).float().mean()) < 1e-4
     if exact:

@@ -73,6 +73,8 @@ def test_wrapper_takes_the_plain_version_for_cpu_tensors():
 def test_work_counts():
     # ~2,800 f32 operations per contact per launch; 68 bytes per contact
     assert sk.flops(1, 1) == 21 + 16 * 153 + 8 * 44
+    # only the active contacts are iterated
+    assert sk.flops(4, 255, active=40) == 4 * 255 * 21 + 40 * (16 * 153 + 8 * 44)
     assert sk.bytes_moved(1024, 255) == 1024 * 255 * 68 + 1024 * 112
 
 
