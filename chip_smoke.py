@@ -11,7 +11,8 @@ Phases, in order; any failure exits nonzero without printing a result:
   3. each kernel against its plain PyTorch version on the card:
      - contact_solver at N = 1024 envs, C = 255 contacts: a random contact set
        and one captured from a real env substep (with the distribution of
-       active contacts per env), then edge cases at C = 255, 37 and 200: an
+       active contacts per env); a substep captured at N = 8192, the training
+       path's grid; then edge cases at C = 255, 37 and 200: an
        env with no active contact, an env with every contact active, C not a
        multiple of 32; all at the reference's fused-vs-XLA solver tolerances;
      - tactile_render (R = 768 rows × 4096 pixels) and camera_render (N = 256
@@ -41,21 +42,33 @@ Phases, in order; any failure exits nonzero without printing a result:
      least time the card could take (bytes or f32 operations at the published
      H100 SXM peaks; operations counted for what this run's data needs: the
      solver's active contacts, the half-planes and quadratic of each row's
-     section family). The solver is timed at 1024 and at 256 envs, on the
-     captured and on the random contact set; the renderers on packed rows with
-     the L2 cache flushed before each launch.
+     section family). The solver is timed at 1024, 256 and 8192 envs on the
+     captured contact set and at 1024 and 256 on the random one; the
+     renderers on packed rows with the L2 cache flushed before each launch.
+     Each time is the median of single launches, printed with their spread;
+  8. main path, teacher training: the PPO training CLI with the
+     hyperparameters of scripts/train_s1.sh (horizon 64, 8 mini-epochs) at
+     8192 envs for 2 epochs from a fresh network (seed 0): exactly 384 solver
+     launches (3 per control step) and no renderer launch, 1,048,576 agent
+     steps, the losses, the KL and the parameter norm finite after each epoch;
+     per epoch it prints env-steps/s, the rollout and update seconds, peak
+     memory, the KL and the clip fraction. Its last.ckpt must load into the
+     teacher eval CLI and run a 50-step eval at 256 envs to a finite success.
 Launch counts are zeroed just before each main path and read just after. The
-line before the last is a JSON object listing every ported kernel; the last
-line is {"ok": true, "device": {...}}.
+line before the last is a JSON object listing every ported kernel with its
+launches summed over the main paths; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -69,6 +82,11 @@ STUDENT_ENVS = 256
 R5_REFERENCE = 0.2539   # the JAX package's 256-env eval of student_r5 (trial std 0.02-0.034)
 R5_FLOOR = 0.12
 PATH_B_STEPS = 500
+# scripts/train_s1.sh's PPO hyperparameters at 8192 envs, 2 epochs
+TRAIN_ENVS = 8192
+TRAIN_EPOCHS = 2
+TRAIN_S1_ARGS = ["train.algo=PPO", "test=False", "train.ppo.horizon_length=64",
+                 "train.ppo.mini_epochs=8"]
 H = 1.0 / 180.0  # substep of dt = 1/60 with 3 substeps
 # published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -154,6 +172,62 @@ def _check_noise(name, noisy, clean):
     return mean, std
 
 
+def _train(cli, counts_zero, counts, substeps, out_dir):
+    """Phase 8: PPO teacher training through the CLI → the launch counts of its run."""
+    import torch
+
+    epochs_args = [f"num_envs={TRAIN_ENVS}", f"max_epochs={TRAIN_EPOCHS}", "seed=0", f"output={out_dir}",
+                   "eval_freq_steps=1e12"]
+    counts_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = cli.main(TRAIN_S1_ARGS + epochs_args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = counts()
+    horizon = trainer.ppo_cfg.horizon
+    steps = horizon * TRAIN_EPOCHS
+    print(f"main path: teacher training (train_s1.sh: horizon {horizon}, {trainer.ppo_cfg.mini_epochs} "
+          f"mini-epochs), {TRAIN_ENVS} envs x {TRAIN_EPOCHS} epochs: {secs:.2f} s incl. reset, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches {c}", flush=True)
+    want = dict(contact_solver=substeps * steps, tactile_render=0, camera_render=0)
+    if c != want:
+        raise PhaseError(f"training launches {c}, expected {want}")
+    if trainer.state.agent_steps != TRAIN_ENVS * steps:
+        raise PhaseError(f"agent_steps {trainer.state.agent_steps}, expected {TRAIN_ENVS * steps}")
+    rows = [json.loads(line) for line in open(os.path.join(out_dir, "metrics.jsonl"))]
+    rows = [r for r in rows if "loss" in r]
+    if len(rows) != TRAIN_EPOCHS:
+        raise PhaseError(f"{len(rows)} epochs logged, expected {TRAIN_EPOCHS}")
+    for i, r in enumerate(rows):
+        bad = [k for k in ("loss", "a_loss", "c_loss", "kl", "info/param_norm")
+               if not math.isfinite(r[k])]
+        if bad:
+            raise PhaseError(f"epoch {i + 1}: {bad} not finite")
+        print(f"training epoch {i + 1}: EnvStepFPS {r['performance/EnvStepFPS']:.1f} env-steps/s, "
+              f"rollout {r['time/rollout_s']:.2f} s, update {r['time/update_s']:.2f} s (advantages "
+              f"{r['time/advantages_s']:.3f}, normalizers {r['time/normalizers_s']:.3f}, batch "
+              f"{r['time/batch_s']:.3f}), peak memory {r['performance/peak_memory_gb']:.3f} GB, "
+              f"loss {r['loss']:.4f}, a_loss {r['a_loss']:.4f}, c_loss {r['c_loss']:.4f}, "
+              f"kl {r['kl']:.5f}, diag/clip_frac {r['diag/clip_frac']:.4f}, reward "
+              f"{r['episode/reward']:.4f}", flush=True)
+    if not all(bool(torch.isfinite(p).all()) for p in trainer.net.parameters()):
+        raise PhaseError("a parameter is not finite after training")
+    ckpt = os.path.join(out_dir, "last")
+    if not os.path.isfile(ckpt + ".ckpt"):
+        raise PhaseError("training wrote no last.ckpt")
+    del trainer
+    torch.cuda.empty_cache()
+    success = cli.main(["train.algo=PPO", "test=True", f"checkpoint={ckpt}", "num_envs=256",
+                        "task.rl.max_episode_length=50"])
+    if not (math.isfinite(success) and 0.0 <= success <= 1.0):
+        raise PhaseError(f"the eval of the trained last.ckpt gave success {success}")
+    print(f"main path: the trained last.ckpt in the teacher eval CLI, 256 envs x 50 steps: success "
+          f"{success:.4f}", flush=True)
+    return c
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -227,6 +301,12 @@ def main():
     print(f"kernel vs plain: contact_solver N={N_ENVS} C={real_args[4].depth.shape[1]}: "
           f"random max_abs_err {err_rand:.3e}, env substep max_abs_err {err_real:.3e} "
           f"({int(k_env.sum())} of {real_args[4].depth.numel()} contacts active)", flush=True)
+    # the training path's grid (phase 8 runs the solver at TRAIN_ENVS envs)
+    train_args = capture.substep_problem(cfg, model, subs, TRAIN_ENVS, H, dev)
+    _, err_train = solver_vs_plain(f"env contacts, {TRAIN_ENVS} envs", train_args)
+    print(f"kernel vs plain: contact_solver N={TRAIN_ENVS} C={train_args[4].depth.shape[1]}: env "
+          f"substep max_abs_err {err_train:.3e} ({int(capture.active_counts(train_args[4]).sum())} of "
+          f"{train_args[4].depth.numel()} contacts active)", flush=True)
     q = lambda x: int(torch.quantile(k_env, x, interpolation="higher"))
     print(f"contact_solver: active contacts per env on the env substep: min {int(k_env.min())}, "
           f"median {q(0.5)}, p99 {q(0.99)}, max {int(k_env.max())} of {real_args[4].depth.shape[1]}; "
@@ -399,29 +479,30 @@ def main():
         t_ops, t_bytes = flop / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_ops, t_bytes
 
-    def row(name, source, replaces, launches, err, ms, plain_ms, flop, nbytes):
+    def row(name, source, replaces, err, times, plain_ms, flop, nbytes):
         b_ms, by, t_ops, t_bytes = bound(flop, nbytes)
-        print(f"times: {name} {ms:.4f} ms, plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms by {by} "
-              f"({flop / 1e9:.3f} GFLOP -> {t_ops:.4f} ms, {nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms)",
-              flush=True)
+        ms = statistics.median(times)
+        print(f"times: {name} {ms:.4f} ms ({capture.spread(times)}), plain {plain_ms:.3f} ms; bound "
+              f"{b_ms:.4f} ms by {by} ({flop / 1e9:.3f} GFLOP -> {t_ops:.4f} ms, {nbytes / 1e6:.2f} MB "
+              f"-> {t_bytes:.4f} ms)", flush=True)
         kernel_rows.append(dict(name=name, route="cuda", source=f"{PACKAGE}/csrc/{source}",
-                                replaces=replaces, launches=launches, max_abs_err=err, ms=ms,
+                                replaces=replaces, launches=0, max_abs_err=err, ms=ms,
                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None))
 
-    launches = {k: sum(results[p][k] for p in results) for k in ("contact_solver", "tactile_render",
-                                                                  "camera_render")} if results else {}
-    time_ms = capture.cuda_time_ms
+    time_ms, times_ms = capture.cuda_time_ms, capture.cuda_times_ms
     with torch.no_grad():
         n, c = real_args[4].depth.shape
+        solver_times = times_ms(lambda: sk.solve_contacts_fused_cuda(*real_args, H), reps=50)
         solve = lambda args: time_ms(lambda: sk.solve_contacts_fused_cuda(*args, H), reps=50)
-        solver_ms = solve(real_args)
+        solver_ms = statistics.median(solver_times)
         row(sk.KERNEL_NAME, "contact_solver.cu", "isaacgyminsertion_tpu/physics/solver_pallas.py:40",
-            launches.get("contact_solver", 0), err_real, solver_ms,
+            max(err_real, err_train), solver_times,
             time_ms(lambda: sk.solve_contacts_fused_plain(*real_args, H), reps=5, warmup=1),
             sk.flops(n, c, active=int(k_env.sum())), sk.bytes_moved(n, c))
         real_small = capture.substep_problem(cfg, model, subs, STUDENT_ENVS, H, dev)
         print(f"times: contact_solver env substep {N_ENVS} envs {solver_ms:.4f} ms, "
-              f"{STUDENT_ENVS} envs {solve(real_small):.4f} ms; random set {N_ENVS} envs "
+              f"{STUDENT_ENVS} envs {solve(real_small):.4f} ms, {TRAIN_ENVS} envs "
+              f"{solve(train_args):.4f} ms; random set {N_ENVS} envs "
               f"{solve(rand_args):.4f} ms, {STUDENT_ENVS} envs "
               f"{solve(random_args(STUDENT_ENVS, 255, 0)):.4f} ms", flush=True)
         flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=dev)   # 1 GB: 20 x L2
@@ -429,26 +510,35 @@ def main():
         noise_kw = dict(generator=insertion.make_generator(9, dev), noise_std=0.01)
         r, p = t_rows[0].shape[0], t_rows[1].shape[1]
         row("tactile_render", "tactile_render.cu", "isaacgyminsertion_tpu/sensors/render_pallas.py:90",
-            launches.get("tactile_render", 0), errs[("tactile", "env state")],
-            time_ms(lambda: rk.tactile_rows_cuda(*t_rows, **t_rkw, **noise_kw), reps=30, flush=flush),
+            errs[("tactile", "env state")],
+            times_ms(lambda: rk.tactile_rows_cuda(*t_rows, **t_rkw, **noise_kw), reps=30, flush=flush),
             time_ms(lambda: rk.tactile_rows_plain(*t_rows, **t_rkw, **noise_kw), reps=5, warmup=1,
                     flush=flush),
             rk.tactile_flops(t_rows[0], p, exact=True, noise_kind="gauss"), rk.tactile_bytes_moved(r, p))
         c_rows, c_rkw = capture.camera_packed(c_args, c_kw)
         n, p = c_rows[0].shape[0], c_rows[1].shape[1]
         row("camera_render", "camera_render.cu", "isaacgyminsertion_tpu/sensors/render_pallas.py:388",
-            launches.get("camera_render", 0), errs[("camera", "env state")],
-            time_ms(lambda: rk.camera_rows_cuda(*c_rows, **c_rkw), reps=30, flush=flush),
+            errs[("camera", "env state")],
+            times_ms(lambda: rk.camera_rows_cuda(*c_rows, **c_rkw), reps=30, flush=flush),
             time_ms(lambda: rk.camera_rows_plain(*c_rows, **c_rkw), reps=5, warmup=1, flush=flush),
             rk.camera_flops(c_rows[0], p, exact=True), rk.camera_bytes_moved(n, p))
         cr_rows, cr_rkw = capture.camera_packed(cr_args, cr_kw)
+        cr_times = times_ms(lambda: rk.camera_rows_cuda(*cr_rows, **cr_rkw), reps=30, flush=flush)
         print(f"times: camera_render random scene {cr_rows[0].shape[0]} envs x {cr_rows[1].shape[1]} px "
-              f"{time_ms(lambda: rk.camera_rows_cuda(*cr_rows, **cr_rkw), reps=30, flush=flush):.4f} ms",
-              flush=True)
+              f"{statistics.median(cr_times):.4f} ms ({capture.spread(cr_times)})", flush=True)
+    del flush
     if opts.kernels_only:
         print(json.dumps({"kernels": kernel_rows}), flush=True)
         print("kernels only: the main paths were skipped, no result line", flush=True)
         return
+
+    # ------------------------------------------------------- 8. teacher training
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as out_dir:
+        results["training"] = _train(cli, counts_zero, counts, cfg.sim.substeps, out_dir)
+
+    for r in kernel_rows:
+        r["launches"] = sum(results[p][r["name"]] for p in results)
     print(card, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

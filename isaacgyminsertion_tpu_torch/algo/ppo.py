@@ -1,0 +1,430 @@
+"""PPO teacher (stage 1): rollout, GAE and the clipped-surrogate update.
+
+Port of `isaacgyminsertion_tpu/algo/ppo.py`, the rl_games-derived PPO of the
+reference: an asymmetric actor-critic with a privileged encoder, GAE
+(γ 0.99, τ 0.95), ratio clip 0.2, a clipped value loss ×0.5×critic_coef,
+a bounds loss, grad-norm clipping, obs/priv/value running normalizers, the
+timeout value bootstrap (reward×0.01 + γV, `value_bootstrap`) and
+minibatch = batch // mini_epochs (the reference's quirk). The options are
+those of the reference: `lr_schedule="kl"`, `anchor_coef`,
+`critic_warmup_steps` (+ `warmup_freeze_rms`) and `bootstrap_mask_success`.
+
+One epoch is a Python loop: `horizon` env steps with the policy sampling
+actions (no autograd, except the env's own SDF gradients), the bootstrap
+value and GAE, the normalizer updates, the flattened batch, then
+`mini_epochs` passes over `batch // mini_epochs`-row minibatches, each an
+autograd step of Adam behind a clip by global norm with optax's semantics.
+The parameters live in the `ActorCriticSplit` module and are updated in
+place; the optimizer's learning rate sits in its `param_groups`. Randomness
+comes from explicit generators: the env's (resets and DR) and the trainer's
+(action noise and minibatch permutations); `train_epoch` also takes the
+noise of each step and the permutation of each mini-epoch from the caller.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from .. import resolve_device
+from ..envs import insertion
+from ..envs.config import TaskConfig
+from ..models.actor_critic import (
+    ActorCriticSplit,
+    gaussian_neglogp,
+    init_like_flax,
+    policy_kl,
+    sample_actions,
+)
+from ..models.running_mean_std import (
+    RMSState,
+    rms_init,
+    rms_normalize,
+    rms_unnormalize,
+    rms_update,
+)
+from ..utils.metrics import Timer
+
+
+@dataclass(frozen=True)
+class PPOConfig:
+    horizon: int = 64
+    mini_epochs: int = 8
+    gamma: float = 0.99
+    tau: float = 0.95
+    e_clip: float = 0.2
+    critic_coef: float = 4.0
+    entropy_coef: float = 0.0
+    bounds_loss_coef: float = 0.0001
+    grad_norm: float = 1.0
+    learning_rate: float = 2.5e-4
+    kl_threshold: float = 0.02
+    # "fixed" (the reference's default) | "kl": kl > 2·thr → lr/1.5,
+    # kl < thr/2 → lr·1.5, clamped to [1e-6, 1e-2], applied once per epoch
+    # on the epoch-mean KL
+    lr_schedule: str = "fixed"
+    # eval-gated anneal ladder (trainer side): after `anneal_patience`
+    # evals below the best by more than `anneal_margin`, restore the best,
+    # multiply the LR by `anneal_decay` (floored at `anneal_min_lr`) and
+    # start Adam's moments afresh
+    anneal_ladder: bool = False
+    anneal_decay: float = 0.5
+    anneal_patience: int = 2
+    anneal_min_lr: float = 1e-6
+    anneal_margin: float = 0.02
+    # > 0 adds anchor_coef · KL(π ‖ π_anchor), π_anchor a frozen snapshot
+    # (the starting policy; the trainer re-points it at each new eval best)
+    anchor_coef: float = 0.0
+    value_bootstrap: bool = True
+    # no γV timeout bootstrap on states that are inserted
+    bootstrap_mask_success: bool = False
+    # while agent_steps < critic_warmup_steps only the critic and the value
+    # head get gradients; with warmup_freeze_rms the obs/priv normalizers
+    # keep their statistics too (value_rms keeps updating)
+    critic_warmup_steps: float = 0.0
+    warmup_freeze_rms: bool = True
+    normalize_input: bool = True
+    normalize_value: bool = True
+    normalize_advantage: bool = True
+    clip_value: bool = True
+    max_agent_steps: float = 1.5e9
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+class PPOState(NamedTuple):
+    net: ActorCriticSplit          # the parameters (updated in place)
+    optimizer: torch.optim.Adam
+    obs_rms: RMSState
+    priv_rms: RMSState
+    value_rms: RMSState
+    env_state: insertion.EnvState
+    env_gen: torch.Generator       # the env's resets and DR
+    train_gen: torch.Generator     # action noise and minibatch permutations
+    epoch: int
+    agent_steps: int               # exact (the reference keeps an f32)
+    # frozen policy snapshot for the anchor-KL loss (None when anchor_coef=0)
+    anchor: ActorCriticSplit | None = None
+
+
+class Transition(NamedTuple):
+    obs: torch.Tensor
+    priv: torch.Tensor
+    actions: torch.Tensor
+    neglogp: torch.Tensor
+    values: torch.Tensor
+    rewards: torch.Tensor
+    dones: torch.Tensor
+    mu: torch.Tensor
+    sigma: torch.Tensor
+    succ: torch.Tensor  # inserted before the step, for the diagnostics only
+
+
+def make_optimizer(params, lr: float) -> torch.optim.Adam:
+    """Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8 outside the
+    root); the learning rate lives in `param_groups` (`set_lr`)."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float):
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """Scale the gradients by max_norm / norm when their global norm exceeds
+    max_norm (optax.clip_by_global_norm; `clip_grad_norm_` adds 1e-6 to the
+    norm and differs) → the norm before clipping."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    clip = ~(norm < max_norm)
+    for g in grads:   # (g / norm) · max_norm, in optax's order
+        g.copy_(torch.where(clip, g / norm * max_norm, g))
+    return norm
+
+
+def _is_critic(name: str) -> bool:
+    return name.startswith(("critic_mlp.", "value."))
+
+
+def build(cfg_task: TaskConfig, ppo_cfg: PPOConfig, model, subs, n_envs: int, seed: int,
+          device=None):
+    """Network (flax's default init), optimizer, the initial PPOState and the
+    epoch → (net, optimizer, state, train_epoch)."""
+    dev = resolve_device(device)
+    obs_dim = cfg_task.env.num_obs_hist * cfg_task.env.num_observations
+    net = ActorCriticSplit(num_actions=cfg_task.env.num_actions, obs_dim=obs_dim,
+                           priv_dim=cfg_task.env.num_states)
+    init_like_flax(net, torch.Generator().manual_seed(int(seed) + 1))
+    net = net.to(dev)
+    env_gen = insertion.make_generator(seed, dev)
+    with torch.no_grad():
+        env_state = insertion.reset_all(cfg_task, model, subs, env_gen, n_envs)
+    optimizer = make_optimizer(net.parameters(), ppo_cfg.learning_rate)
+    state = PPOState(
+        net=net, optimizer=optimizer,
+        obs_rms=rms_init((obs_dim,), dev), priv_rms=rms_init((cfg_task.env.num_states,), dev),
+        value_rms=rms_init((), dev), env_state=env_state, env_gen=env_gen,
+        train_gen=insertion.make_generator(int(seed) + 2, dev), epoch=0, agent_steps=0,
+        anchor=frozen_copy(net) if ppo_cfg.anchor_coef > 0 else None)
+    return net, optimizer, state, TrainEpoch(cfg_task, ppo_cfg, model, subs)
+
+
+def frozen_copy(net: torch.nn.Module) -> torch.nn.Module:
+    """A detached snapshot of `net` (the anchor policy)."""
+    anchor = copy.deepcopy(net)
+    for p in anchor.parameters():
+        p.requires_grad_(False)
+    return anchor
+
+
+def make_act_fn(cfg_task: TaskConfig, net):
+    """Inference policy: (obs_rms, priv_rms, obs, priv) → clamped
+    deterministic actions (the test path)."""
+
+    def act(obs_rms, priv_rms, obs, priv):
+        mu = net(rms_normalize(obs_rms, obs), rms_normalize(priv_rms, priv))[0]
+        return torch.clamp(mu, -1.0, 1.0)
+
+    return act
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class TrainEpoch:
+    """One PPO epoch: `train_epoch(state, noise=None, perms=None)` →
+    (state', metrics). `noise` holds the [N, A] standard-normal draw of each
+    rollout step and `perms` the [B] permutation of each mini-epoch; where
+    they are not given they come from `state.train_gen`. The phases
+    (`rollout`, `advantages`, `normalizers`, `batch`, `update`) are methods so
+    that a profiler can take them apart; `timer` sums their host seconds,
+    each phase closed by a device synchronize."""
+
+    def __init__(self, cfg_task: TaskConfig, ppo_cfg: PPOConfig, model, subs):
+        self.cfg_task, self.ppo_cfg, self.model, self.subs = cfg_task, ppo_cfg, model, subs
+        self.timer = Timer()
+
+    def _unnorm_value(self, value_rms, v):
+        return rms_unnormalize(value_rms, v) if self.ppo_cfg.normalize_value else v
+
+    # ------------------------------------------------------------ rollout
+    @torch.no_grad()
+    def rollout_step(self, state: PPOState, env_state, eps=None):
+        """One control step with sampled actions → (env_state', Transition,
+        per-step metrics as a tensor [reward, success, dones, render_overflow])."""
+        c, net = self.ppo_cfg, state.net
+        obs = env_state.obs_queue
+        succ_pre = env_state.success_reset_buf.float()
+        priv = insertion.priv_info_of(self.cfg_task, self.model, env_state)
+        mu, log_std, value_n, _ = net(rms_normalize(state.obs_rms, obs),
+                                      rms_normalize(state.priv_rms, priv))
+        actions, neglogp = sample_actions(mu, log_std, state.train_gen, noise=eps)
+        value = self._unnorm_value(state.value_rms, value_n)
+        env_state, out = insertion.step(self.cfg_task, self.model, self.subs, env_state,
+                                        torch.clamp(actions, -1.0, 1.0), state.env_gen)
+        if c.value_bootstrap:
+            boot = out.timeout.to(out.rew.dtype)
+            if c.bootstrap_mask_success:
+                boot = boot * (1.0 - env_state.success_reset_buf.to(out.rew.dtype))
+            shaped = 0.01 * out.rew + c.gamma * value * boot
+        else:
+            shaped = out.rew
+        dones = out.reset.float()
+        tr = Transition(obs=obs, priv=priv, actions=actions, neglogp=neglogp, values=value,
+                        rewards=shaped, dones=dones, mu=mu,
+                        sigma=torch.exp(log_std) * torch.ones_like(mu), succ=succ_pre)
+        m = torch.stack([out.rew.mean(), out.extras["successes"].mean(), dones.sum(),
+                         out.extras["render_overflow"][0].float()])
+        return env_state, tr, m
+
+    def rollout(self, state: PPOState, noise=None):
+        """`horizon` steps → (env_state, trajectory [T, N, ...], step metrics [T, 4])."""
+        env_state, trs, ms = state.env_state, [], []
+        for t in range(self.ppo_cfg.horizon):
+            env_state, tr, m = self.rollout_step(state, env_state,
+                                                 None if noise is None else noise[t])
+            trs.append(tr)
+            ms.append(m)
+        traj = Transition(*[torch.stack(x) for x in zip(*trs)])
+        return env_state, traj, torch.stack(ms)
+
+    # ------------------------------------------------------------ returns
+    @torch.no_grad()
+    def advantages(self, state: PPOState, env_state, traj: Transition):
+        """Bootstrap value of the last state, then GAE backwards → (advs, returns)."""
+        c = self.ppo_cfg
+        priv_last = insertion.priv_info_of(self.cfg_task, self.model, env_state)
+        last_value_n = state.net(rms_normalize(state.obs_rms, env_state.obs_queue),
+                                 rms_normalize(state.priv_rms, priv_last))[2]
+        v_next = self._unnorm_value(state.value_rms, last_value_n)
+        adv_next = torch.zeros_like(v_next)
+        nd_next = 1.0 - traj.dones[-1]
+        advs = [None] * c.horizon
+        for t in reversed(range(c.horizon)):
+            delta = traj.rewards[t] + c.gamma * v_next * nd_next - traj.values[t]
+            adv_next = delta + c.gamma * c.tau * nd_next * adv_next
+            advs[t] = adv_next
+            v_next, nd_next = traj.values[t], 1.0 - traj.dones[t]
+        advs = torch.stack(advs)
+        return advs, advs + traj.values
+
+    @torch.no_grad()
+    def normalizers(self, state: PPOState, traj: Transition, returns):
+        """The batch-level normalizer updates → (obs_rms, priv_rms, value_rms)."""
+        c = self.ppo_cfg
+        obs_rms = rms_update(state.obs_rms, traj.obs) if c.normalize_input else state.obs_rms
+        priv_rms = rms_update(state.priv_rms, traj.priv) if c.normalize_input else state.priv_rms
+        value_rms = rms_update(state.value_rms, returns) if c.normalize_value else state.value_rms
+        if c.critic_warmup_steps > 0 and c.warmup_freeze_rms \
+                and state.agent_steps < c.critic_warmup_steps:
+            obs_rms, priv_rms = state.obs_rms, state.priv_rms
+        return obs_rms, priv_rms, value_rms
+
+    @torch.no_grad()
+    def batch(self, traj: Transition, advs, returns, value_rms):
+        """The flattened [B, ...] batch and the collapse diagnostics."""
+        c = self.ppo_cfg
+        returns_n = rms_normalize(value_rms, returns, clip=1e6) if c.normalize_value else returns
+        values_n = rms_normalize(value_rms, traj.values, clip=1e6) if c.normalize_value else traj.values
+        fl = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
+        batch = dict(obs=fl(traj.obs), priv=fl(traj.priv), actions=fl(traj.actions),
+                     neglogp=fl(traj.neglogp), values=fl(values_n), returns=fl(returns_n),
+                     advs=fl(advs), mu=fl(traj.mu), sigma=fl(traj.sigma))
+        if c.normalize_advantage:
+            a = batch["advs"]
+            batch["advs"] = (a - torch.mean(a)) / (torch.std(a, correction=0) + 1e-8)
+        succ_m = traj.succ
+        fail_m = 1.0 - succ_m
+        n_s = torch.sum(succ_m) + 1e-8
+        n_f = torch.sum(fail_m) + 1e-8
+        verr = returns - traj.values  # unnormalized TD(λ) value error
+        diag = {
+            "diag/value_error_abs": torch.mean(torch.abs(verr)),
+            "diag/value_error_success": torch.sum(torch.abs(verr) * succ_m) / n_s,
+            "diag/value_error_fail": torch.sum(torch.abs(verr) * fail_m) / n_f,
+            "diag/adv_success": torch.sum(advs * succ_m) / n_s,
+            "diag/adv_fail": torch.sum(advs * fail_m) / n_f,
+            "diag/adv_std": torch.std(advs, correction=0),
+            "diag/success_state_frac": torch.mean(succ_m),
+            "diag/value_mean": torch.mean(traj.values),
+            "diag/return_mean": torch.mean(returns),
+        }
+        return batch, diag
+
+    # ------------------------------------------------------------ update
+    def loss(self, state: PPOState, obs_rms, priv_rms, mb: dict):
+        """The PPO loss of one minibatch → (loss, aux dict of scalars)."""
+        c = self.ppo_cfg
+        o = rms_normalize(obs_rms, mb["obs"])
+        p = rms_normalize(priv_rms, mb["priv"])
+        mu, log_std, value, _ = state.net(o, p)
+        neglogp = gaussian_neglogp(mb["actions"], mu, log_std)
+        ratio = torch.exp(mb["neglogp"] - neglogp)
+        surr1 = mb["advs"] * ratio
+        surr2 = mb["advs"] * torch.clamp(ratio, 1.0 - c.e_clip, 1.0 + c.e_clip)
+        a_loss = torch.mean(torch.maximum(-surr1, -surr2))
+        if c.clip_value:
+            v_clipped = mb["values"] + torch.clamp(value - mb["values"], -c.e_clip, c.e_clip)
+            v_loss = torch.maximum(torch.square(value - mb["returns"]),
+                                   torch.square(v_clipped - mb["returns"]))
+        else:
+            v_loss = torch.square(value - mb["returns"])
+        c_loss = torch.mean(v_loss)
+        # one scalar from log_std alone (state-independent std)
+        entropy = torch.sum(log_std + 0.5 * math.log(2.0 * math.pi * math.e))
+        mu_excess = torch.clamp(mu - 1.1, min=0.0) ** 2 + torch.clamp(mu + 1.1, max=0.0) ** 2
+        b_loss = torch.mean(torch.sum(mu_excess, dim=-1))
+        loss = (a_loss + 0.5 * c_loss * c.critic_coef - entropy * c.entropy_coef
+                + b_loss * c.bounds_loss_coef)
+        sigma = torch.exp(log_std) * torch.ones_like(mu)
+        kl = policy_kl(mu, sigma, mb["mu"], mb["sigma"])
+        clip_frac = torch.mean((torch.abs(ratio - 1.0) > c.e_clip).float())
+        aux = {"a_loss": a_loss, "c_loss": c_loss, "b_loss": b_loss, "kl": kl,
+               "diag/entropy": entropy, "diag/clip_frac": clip_frac}
+        if c.anchor_coef > 0:
+            with torch.no_grad():
+                mu_a, log_std_a, _, _ = state.anchor(o, p)
+            kl_anchor = policy_kl(mu, sigma, mu_a, torch.exp(log_std_a) * torch.ones_like(mu_a))
+            loss = loss + c.anchor_coef * kl_anchor
+            aux["kl_anchor"] = kl_anchor
+        return loss, aux
+
+    def update(self, state: PPOState, obs_rms, priv_rms, batch: dict, perms=None) -> dict:
+        """`mini_epochs` passes of `B // mini_epochs`-row minibatches → the
+        losses and diagnostics, averaged per mini-epoch, then over them."""
+        c, net, opt = self.ppo_cfg, state.net, state.optimizer
+        B = batch["obs"].shape[0]
+        mb_size = B // c.mini_epochs
+        n_mb = B // mb_size
+        warm = c.critic_warmup_steps > 0 and state.agent_steps < c.critic_warmup_steps
+        frozen = [p for n, p in net.named_parameters() if not _is_critic(n)] if warm else []
+        params = list(net.parameters())
+        per_epoch = []
+        for k in range(c.mini_epochs):
+            perm = perms[k] if perms is not None else torch.randperm(
+                B, generator=state.train_gen, device=batch["obs"].device)
+            perm = perm.reshape(n_mb, mb_size)
+            rows = []
+            for i in range(n_mb):
+                mb = {key: v[perm[i]] for key, v in batch.items()}
+                loss, aux = self.loss(state, obs_rms, priv_rms, mb)
+                opt.zero_grad(set_to_none=False)
+                loss.backward()
+                for p in frozen:   # critic warmup: only the critic's gradients count
+                    p.grad.zero_()
+                clip_by_global_norm_(params, c.grad_norm)
+                opt.step()
+                aux["loss"] = loss
+                rows.append(torch.stack([v.detach() for v in aux.values()]))
+            per_epoch.append(torch.stack(rows).mean(0))
+        names = list(aux.keys())
+        return dict(zip(names, torch.stack(per_epoch).mean(0)))
+
+    # ------------------------------------------------------------ epoch
+    def _phase(self, name: str, dev, fn, *args):
+        """fn(*args), its host seconds (to the device's end) added to timer[name]."""
+        self.timer.start(name)
+        out = fn(*args)
+        _sync(dev)
+        self.timer.stop(name)
+        return out
+
+    def __call__(self, state: PPOState, noise=None, perms=None):
+        c, timer = self.ppo_cfg, self.timer
+        dev = state.obs_rms.mean.device
+        before = dict(timer.totals)
+        env_state, traj, roll = self._phase("rollout", dev, self.rollout, state, noise)
+        advs, returns = self._phase("advantages", dev, self.advantages, state, env_state, traj)
+        obs_rms, priv_rms, value_rms = self._phase("normalizers", dev, self.normalizers, state, traj,
+                                                   returns)
+        batch, diag = self._phase("batch", dev, self.batch, traj, advs, returns, value_rms)
+        aux = self._phase("update", dev, self.update, state, obs_rms, priv_rms, batch, perms)
+        roll = roll.mean(0)
+        metrics = {**aux, **diag, "episode/reward": roll[0], "episode/success": roll[1],
+                   "episode/dones": roll[2], "episode/render_overflow": roll[3]}
+        names = list(metrics)
+        metrics = dict(zip(names, torch.stack([metrics[k].float() for k in names]).tolist()))
+        if c.lr_schedule == "kl":
+            cur = state.optimizer.param_groups[0]["lr"]
+            thr = c.kl_threshold
+            new_lr = cur / 1.5 if metrics["kl"] > 2.0 * thr else (
+                cur * 1.5 if metrics["kl"] < 0.5 * thr else cur)
+            new_lr = min(max(new_lr, 1e-6), 1e-2)
+            set_lr(state.optimizer, new_lr)
+            metrics["info/lr"] = new_lr
+        for phase, total in timer.totals.items():
+            metrics[f"time/{phase}_s"] = total - before.get(phase, 0.0)
+        n_envs = traj.obs.shape[1]
+        return state._replace(obs_rms=obs_rms, priv_rms=priv_rms, value_rms=value_rms,
+                              env_state=env_state, epoch=state.epoch + 1,
+                              agent_steps=state.agent_steps + c.horizon * n_envs), metrics

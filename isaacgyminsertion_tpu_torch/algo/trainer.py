@@ -1,10 +1,13 @@
-"""Teacher and student evaluation: full-episode deterministic eval of a
-trained policy.
+"""Training and evaluation loops: the PPO teacher's epoch loop with its
+telemetry, periodic evals, checkpoint rotation and anneal ladder, and the
+full-episode deterministic evals of a trained teacher or student.
 
-Port of the eval half of `isaacgyminsertion_tpu/algo/trainer.py`:
-`make_eval_fn` and `PPOTrainer.test` (the teacher), `make_student_eval_fn` and
-`DAggerTrainer.test` / `test_log` (the student driving the sensors-on env).
-PPO and DAgger training are not ported yet.
+Port of `isaacgyminsertion_tpu/algo/trainer.py`: `make_eval_fn`,
+`PPOTrainer` (training), the eval-only `TeacherEvaluator` in place of the
+reference's `PPOTrainer.test` (it evaluates a checkpoint without building a
+training state); `make_student_eval_fn` and
+`DAggerTrainer.test` / `test_log` as `StudentEvaluator` (the student driving
+the sensors-on env). DAgger training is not ported yet.
 """
 
 from __future__ import annotations
@@ -12,17 +15,20 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import time
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..envs import insertion
-from ..models.actor_critic import actor_critic_from_jax_params
-from ..models.running_mean_std import rms_normalize, rms_to
+from ..models.actor_critic import actor_critic_from_jax_params, convert_jax_params, to_jax_params
+from ..models.running_mean_std import rms_normalize, rms_to, rms_to_numpy
 from ..models.student import student_from_jax_params
-from ..utils.checkpoint import restore_path
+from ..utils.checkpoint import Checkpointer, restore_path
+from ..utils.metrics import AverageScalarMeter, MetricsWriter
 from . import ext_adapt as ea
+from . import ppo as ppo_mod
 
 
 def make_eval_fn(cfg_task, model, subs, net, n_envs: int, chunk: int = 50, device=None):
@@ -78,6 +84,144 @@ class TeacherEvaluator:
         sr = float(np.mean(rates))
         print(f"Success Rate: {sr:.4f}")
         return sr
+
+
+class PPOTrainer:
+    """Stage-1 teacher trainer: epochs of `algo/ppo.py`, FPS metering,
+    checkpoint rotation, periodic full-episode evals and the eval-gated
+    anneal ladder (`PPOConfig.anneal_ladder`)."""
+
+    def __init__(self, cfg_task, ppo_cfg, model, subs, n_envs, out_dir, seed: int = 0,
+                 eval_envs: int | None = None, eval_freq_steps: float = 10.0e6, device=None):
+        self.device = resolve_device(device)
+        self.cfg_task, self.ppo_cfg = cfg_task, ppo_cfg
+        self.model, self.subs, self.n_envs = model, subs, n_envs
+        self.net, _, self.state, self.train_epoch = ppo_mod.build(
+            cfg_task, ppo_cfg, model, subs, n_envs, seed, device=self.device)
+        self.ckpt = Checkpointer(out_dir)
+        self.writer = MetricsWriter(out_dir)
+        self.episode_rewards = AverageScalarMeter()
+        self.episode_success = AverageScalarMeter()
+        # evals run the true clearance distribution, single episode
+        self.eval_fn = make_eval_fn(eval_task_config(cfg_task), model, subs, self.net,
+                                    eval_envs or min(n_envs, 64), device=self.device)
+        self.eval_freq_steps = eval_freq_steps
+        self._next_eval = eval_freq_steps
+        self._best_eval = float("-inf")
+        self._best_tree = None
+        self._decline = 0
+        self._cur_lr = ppo_cfg.learning_rate
+        # once the LR sits at anneal_min_lr and patience trips again, the
+        # ladder has nothing left: training stops
+        self._anneal_exhausted = False
+        self.ckpt.dump_config({"task": cfg_task, "ppo": ppo_cfg, "num_envs": n_envs})
+
+    def _ckpt_tree(self) -> dict:
+        """The checkpoint in the reference's layout (flax params as numpy)."""
+        s = self.state
+        return {"params": to_jax_params(self.net.state_dict()), "obs_rms": rms_to_numpy(s.obs_rms),
+                "priv_rms": rms_to_numpy(s.priv_rms), "value_rms": rms_to_numpy(s.value_rms),
+                "epoch": np.asarray(s.epoch, np.int32), "agent_steps": np.asarray(s.agent_steps, np.int64)}
+
+    def _load_tree(self, tree):
+        """Params and normalizers from a checkpoint tree, in place."""
+        sd = convert_jax_params(tree["params"])
+        self.net.load_state_dict(sd)
+        self.state = self.state._replace(
+            obs_rms=rms_to(tree["obs_rms"], self.device), priv_rms=rms_to(tree["priv_rms"], self.device),
+            value_rms=rms_to(tree["value_rms"], self.device))
+        if self.state.anchor is not None:
+            self.state.anchor.load_state_dict(sd)
+
+    def restore(self, path: str):
+        """Params and normalizers from a checkpoint; with the anchor on, the
+        anchor follows the restored policy."""
+        self._load_tree(restore_path(path))
+
+    def train(self, max_epochs: int | None = None, save_freq: int = 100, log_freq: int = 1):
+        steps_per_epoch = self.ppo_cfg.horizon * self.n_envs
+        max_epochs = max_epochs or int(self.ppo_cfg.max_agent_steps // steps_per_epoch)
+        cuda = self.device.type == "cuda"
+        t_start = time.perf_counter()
+        for _ in range(max_epochs):
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(self.device)
+            t0 = time.perf_counter()
+            self.state, metrics = self.train_epoch(self.state)
+            dt = time.perf_counter() - t0
+            epoch, agent_steps = self.state.epoch, self.state.agent_steps
+            self.episode_rewards.update(metrics["episode/reward"])
+            self.episode_success.update(metrics["episode/success"])
+
+            if epoch % log_freq == 0:
+                metrics["performance/EnvStepFPS"] = steps_per_epoch / dt
+                metrics["performance/RLTrainFPS"] = agent_steps / (time.perf_counter() - t_start)
+                with torch.no_grad():
+                    metrics["info/param_norm"] = float(torch.sqrt(
+                        sum(torch.sum(p * p) for p in self.net.parameters())))
+                if cuda:
+                    metrics["performance/peak_memory_gb"] = \
+                        torch.cuda.max_memory_allocated(self.device) / 1e9
+                self.writer.write(agent_steps, metrics)
+            if epoch % save_freq == 0:
+                self.ckpt.save_last(self._ckpt_tree(), agent_steps)
+                self.ckpt.maybe_save_best(self._ckpt_tree(), self.episode_rewards.current_mean,
+                                          self.episode_success.current_mean)
+            if agent_steps >= self._next_eval:
+                self._next_eval += self.eval_freq_steps
+                sr = self.eval_fn(self.state.obs_rms, self.state.priv_rms, epoch)
+                self.writer.write(agent_steps, {"eval/success_rate": sr})
+                self.ckpt.maybe_save_best(self._ckpt_tree(), float("-inf"), sr)
+                self._anneal_step(sr)
+                if self._anneal_exhausted:
+                    print(f"[anneal] exhausted at lr={self._cur_lr:.2e}; "
+                          f"stopping at best eval {self._best_eval:.3f}", flush=True)
+                    break
+            if agent_steps >= self.ppo_cfg.max_agent_steps:
+                break
+        self.ckpt.save_last(self._ckpt_tree(), self.state.agent_steps)
+        return self.state
+
+    def _set_lr(self, lr: float):
+        ppo_mod.set_lr(self.state.optimizer, lr)
+
+    def _anneal_step(self, sr: float):
+        """One rung of the eval-gated anneal ladder."""
+        c = self.ppo_cfg
+        if not c.anneal_ladder:
+            return
+        if sr > self._best_eval:
+            self._best_eval = sr
+            self._best_tree = self._ckpt_tree()
+            self._decline = 0
+            if self.state.anchor is not None:
+                # the anchor tracks the best-eval policy, not the start
+                self.state.anchor.load_state_dict(self.net.state_dict())
+            return
+        if sr >= self._best_eval - c.anneal_margin:
+            return  # within eval noise of the best: not a decline
+        self._decline += 1
+        if self._decline < c.anneal_patience or self._best_tree is None:
+            return
+        if self._cur_lr <= c.anneal_min_lr:
+            # at the LR floor and declining again: restore the best once so
+            # the saved `last` equals it, then stop
+            self._anneal_exhausted = True
+        # best params and normalizers, fresh Adam moments, decayed LR; the
+        # env keeps rolling
+        self._load_tree(self._best_tree)
+        self.state = self.state._replace(
+            optimizer=ppo_mod.make_optimizer(self.net.parameters(), c.learning_rate))
+        self._cur_lr = max(self._cur_lr * c.anneal_decay, c.anneal_min_lr)
+        self._set_lr(self._cur_lr)
+        self._decline = 0
+        self.writer.write(self.state.agent_steps, {"info/anneal_restore_best": self._best_eval,
+                                                   "info/anneal_lr": self._cur_lr})
+        print(f"[anneal] restored best eval {self._best_eval:.3f}, lr -> {self._cur_lr:.2e}",
+              flush=True)
+
+    def record_video(self, n_steps: int = 150, seed: int = 0):
+        raise NotImplementedError("record_video waits for utils/video.py, which is not ported yet")
 
 
 def make_student_eval_fn(cfg_task, da_cfg, model, subs, teacher: ea.TeacherBundle, n_envs: int,

@@ -1,5 +1,13 @@
-"""Command line (`key=value` overrides): the eval paths of the reference's
-train.py.
+"""Command line (`key=value` overrides): the reference's train.py for the
+teacher's training and eval and the student's eval.
+
+    python -m isaacgyminsertion_tpu_torch.cli train.algo=PPO test=False num_envs=4096 \
+        train.ppo.horizon_length=64 train.ppo.mini_epochs=8 output=outputs/teacher
+
+trains a teacher with PPO (`max_epochs=`, `seed=`, `eval_freq_steps=`;
+`checkpoint=` restores one before training; `train.ppo.*` and `ppo.*` set
+the PPO config), writing `last.ckpt`, `best_*.ckpt`, `config.json` and
+`metrics.jsonl` into `output`;
 
     python -m isaacgyminsertion_tpu_torch.cli train.algo=PPO test=True \
         checkpoint=checkpoints/teacher_r2b/best_success num_envs=1024
@@ -13,9 +21,11 @@ evaluates a teacher, and
         train.ppo.only_bc=True
 
 a student on the sensors-on env (`noise_study=True` adds the point-cloud
-noise sweep, `output=<dir>` is where it writes). Both print `Success Rate: x`.
-The eval runs `num_envs` envs (`eval_envs=` sets it separately), on CUDA
-unless `device=cpu` is given. Training (`test=False`) is not ported yet.
+noise sweep, `output=<dir>` is where it writes). Both evals print
+`Success Rate: x` and run `num_envs` envs (`eval_envs=` sets it separately).
+Everything runs on CUDA unless `device=cpu` is given. Student training
+(`ExtrinsicAdapt test=False`) and the grasp-dataset resets (`grasp_dataset=`)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import sys
 from typing import Any
 
 from .algo.ext_adapt import DAggerConfig
+from .algo.ppo import PPOConfig
 from .envs.config import default_task_config
 
 # reference yaml name → dataclass path in TaskConfig (None: the env count)
@@ -97,6 +108,37 @@ _KEYMAP = {
 }
 
 
+# reference yaml name → field of PPOConfig
+_PPO_KEYMAP = {
+    "train.ppo.horizon_length": "horizon",
+    "train.ppo.mini_epochs": "mini_epochs",
+    "train.ppo.learning_rate": "learning_rate",
+    "train.ppo.gamma": "gamma",
+    "train.ppo.tau": "tau",
+    "train.ppo.e_clip": "e_clip",
+    "train.ppo.critic_coef": "critic_coef",
+    "train.ppo.entropy_coef": "entropy_coef",
+    "train.ppo.bounds_loss_coef": "bounds_loss_coef",
+    "train.ppo.grad_norm": "grad_norm",
+    "train.ppo.kl_threshold": "kl_threshold",
+    "train.ppo.lr_schedule": "lr_schedule",
+    "train.ppo.anneal_ladder": "anneal_ladder",
+    "train.ppo.anneal_decay": "anneal_decay",
+    "train.ppo.anneal_patience": "anneal_patience",
+    "train.ppo.anneal_min_lr": "anneal_min_lr",
+    "train.ppo.anneal_margin": "anneal_margin",
+    "train.ppo.anchor_coef": "anchor_coef",
+    "train.ppo.value_bootstrap": "value_bootstrap",
+    "train.ppo.bootstrap_mask_success": "bootstrap_mask_success",
+    "train.ppo.critic_warmup_steps": "critic_warmup_steps",
+    "train.ppo.normalize_input": "normalize_input",
+    "train.ppo.normalize_value": "normalize_value",
+    "train.ppo.normalize_advantage": "normalize_advantage",
+    "train.ppo.clip_value": "clip_value",
+    "train.ppo.max_agent_steps": "max_agent_steps",
+}
+
+
 # reference yaml name → field of DAggerConfig (None: accepted for recipe
 # compatibility, no effect)
 _DAGGER_KEYMAP = {
@@ -137,12 +179,16 @@ def _set_path(obj, path: str, value):
 
 
 def parse_args(argv: list[str] | None = None) -> dict:
-    """Returns {task, dagger, algo, num_envs, eval_envs, test, checkpoint,
-    student_checkpoint, noise_study, output, seed, device}."""
+    """Returns {task, ppo, dagger, algo, num_envs, eval_envs, test, checkpoint,
+    student_checkpoint, noise_study, output, seed, device, max_epochs,
+    eval_freq_steps, grasp_dataset}. `seed` is None unless given: training
+    then seeds with 42 and the evals with 1234, as the reference does."""
     argv = sys.argv[1:] if argv is None else argv
-    out = dict(task=default_task_config(), dagger=DAggerConfig(), algo="PPO", num_envs=128,
-               eval_envs=None, test=False, checkpoint="", student_checkpoint="",
-               noise_study=False, output="outputs/run", seed=1234, device=None)
+    out = dict(task=default_task_config(), ppo=PPOConfig(), dagger=DAggerConfig(), algo="PPO",
+               num_envs=128, eval_envs=None, test=False, checkpoint="", student_checkpoint="",
+               noise_study=False, output="outputs/run", seed=None, device=None, max_epochs=None,
+               eval_freq_steps=10.0e6, grasp_dataset="")
+    truncate_grads = None
     for arg in argv:
         if "=" not in arg:
             continue
@@ -166,6 +212,23 @@ def parse_args(argv: list[str] | None = None) -> dict:
             out["noise_study"] = bool(val)
         elif k in ("output", "train.ppo.output_name"):
             out["output"] = str(val)
+        elif k == "max_epochs":
+            out["max_epochs"] = int(val)
+        elif k == "eval_freq_steps":
+            out["eval_freq_steps"] = float(val)
+        elif k in ("grasp_dataset", "task.grasp_dataset"):
+            out["grasp_dataset"] = str(val)
+        elif k == "train.ppo.truncate_grads":
+            # the reference's boolean: True keeps the grad_norm clip, False
+            # turns clipping off. Applied after every override, so that a
+            # later train.ppo.grad_norm=X does not depend on the order.
+            if not isinstance(val, bool):
+                raise SystemExit("train.ppo.truncate_grads expects true/false")
+            truncate_grads = val
+        elif k in _PPO_KEYMAP:
+            out["ppo"] = _set_path(out["ppo"], _PPO_KEYMAP[k], val)
+        elif k.startswith("ppo."):
+            out["ppo"] = _set_path(out["ppo"], k[len("ppo."):], val)
         elif k in _DAGGER_KEYMAP:
             if _DAGGER_KEYMAP[k] is not None:
                 out["dagger"] = _set_path(out["dagger"], _DAGGER_KEYMAP[k], val)
@@ -183,36 +246,52 @@ def parse_args(argv: list[str] | None = None) -> dict:
             out["task"] = _set_path(out["task"], k[len("task."):], val)
         else:
             raise SystemExit(f"unknown override: {k}")
+    if truncate_grads is False:
+        out["ppo"] = _set_path(out["ppo"], "grad_norm", float("inf"))
     return out
 
 
 def main(argv: list[str] | None = None):
-    """Run the teacher or the student eval; returns the success rate."""
+    """Train a teacher (returns the `PPOTrainer`), or run the teacher or the
+    student eval (returns the success rate)."""
     args = parse_args(argv)
     if args["algo"] not in ("PPO", "ExtrinsicAdapt"):
         raise SystemExit(f"unknown algo {args['algo']!r}")
-    if not args["test"]:
-        raise SystemExit(f"{args['algo']} training is not ported yet (the next slices of the "
-                         "port); run with test=True checkpoint=<teacher ckpt> to evaluate")
-    if not args["checkpoint"]:
-        raise SystemExit("test=True needs checkpoint=<teacher ckpt>")
+    if args["grasp_dataset"]:
+        raise SystemExit("grasp_dataset= is not ported yet: the grasp-dataset resets wait for "
+                         "envs/grasp_gen.py")
+    if args["algo"] == "ExtrinsicAdapt" and not args["test"]:
+        raise SystemExit("ExtrinsicAdapt training is not ported yet (the next slice of the port); "
+                         "run with test=True to evaluate a student")
 
-    from .algo.trainer import StudentEvaluator, TeacherEvaluator
+    from .algo.trainer import PPOTrainer, StudentEvaluator, TeacherEvaluator
     from .assets import build_subassembly_set
     from .physics.robot import build_kuka_openhand
 
     model, subs = build_kuka_openhand(), build_subassembly_set()
+    if args["algo"] == "PPO" and not args["test"]:
+        trainer = PPOTrainer(args["task"], args["ppo"], model, subs, args["num_envs"], args["output"],
+                             seed=42 if args["seed"] is None else args["seed"],
+                             eval_envs=args["eval_envs"], eval_freq_steps=args["eval_freq_steps"],
+                             device=args["device"])
+        if args["checkpoint"]:
+            trainer.restore(args["checkpoint"])
+        trainer.train(max_epochs=args["max_epochs"])
+        return trainer
+    if not args["checkpoint"]:
+        raise SystemExit("test=True needs checkpoint=<teacher ckpt>")
+    seed = 1234 if args["seed"] is None else args["seed"]
     n_envs = args["eval_envs"] or args["num_envs"]
     if args["algo"] == "PPO":
         runner = TeacherEvaluator(args["task"], model, subs, n_envs, args["checkpoint"],
                                   device=args["device"])
-        return runner.test(seed=args["seed"])
+        return runner.test(seed=seed)
     if not args["student_checkpoint"]:
         raise SystemExit("ExtrinsicAdapt test=True needs student_checkpoint=<student ckpt>")
     runner = StudentEvaluator(args["task"], args["dagger"], model, subs, n_envs, args["checkpoint"],
                               args["student_checkpoint"], out_dir=args["output"],
                               device=args["device"])
-    sr = runner.test(seed=args["seed"])
+    sr = runner.test(seed=seed)
     if args["noise_study"]:
         runner.test_log()
     return sr

@@ -4,11 +4,15 @@ Port of `ActorCriticSplit` in `isaacgyminsertion_tpu/models/actor_critic.py`:
 priv-MLP 64→[256,128,8] latent, actor/critic MLPs [512,256,128] over
 obs ⊕ latent (ELU throughout), a linear mu head, a linear value head and a
 state-independent learned log-std. `convert_jax_params` turns the reference's
-flax parameter tree into this module's state dict.
+flax parameter tree into this module's state dict and `to_jax_params` turns it
+back; `init_like_flax` draws a fresh network with flax's default initializers.
+The Gaussian policy helpers (`sample_actions`, `gaussian_neglogp`,
+`policy_kl`) are those of the reference's PPO.
 """
 
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
 from typing import Sequence
 
@@ -63,7 +67,7 @@ def convert_jax_params(params) -> "OrderedDict[str, torch.Tensor]":
     A flax Dense `kernel` is [in, out]; a torch Linear `weight` is [out, in].
     Accepts the tree with or without its top-level "params" key."""
     p = params.get("params", params)
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    t = lambda a: torch.as_tensor(np.array(a, np.float32))
     sd = OrderedDict()
     for mlp in ("priv_mlp", "actor_mlp", "critic_mlp"):
         dense = sorted(p[mlp], key=lambda k: int(k.split("_")[1]))
@@ -75,6 +79,66 @@ def convert_jax_params(params) -> "OrderedDict[str, torch.Tensor]":
         sd[f"{head}.bias"] = t(p[head]["bias"])
     sd["log_std"] = t(p["log_std"])
     return sd
+
+
+def to_jax_params(state_dict) -> dict:
+    """`ActorCriticSplit.state_dict()` → the flax tree `{"params": {...}}` as
+    float32 numpy arrays, kernels [in, out] (the inverse of
+    `convert_jax_params`; the layout of the reference's checkpoints)."""
+    a = lambda t: np.array(t.detach().cpu(), np.float32)   # a copy, never a view of a parameter
+    p = {}
+    for mlp in ("priv_mlp", "actor_mlp", "critic_mlp"):
+        n = sum(1 for k in state_dict if k.startswith(f"{mlp}.layers.") and k.endswith(".weight"))
+        p[mlp] = {f"Dense_{i}": {"kernel": a(state_dict[f"{mlp}.layers.{i}.weight"]).T.copy(),
+                                 "bias": a(state_dict[f"{mlp}.layers.{i}.bias"])} for i in range(n)}
+    for head in ("mu", "value"):
+        p[head] = {"kernel": a(state_dict[f"{head}.weight"]).T.copy(), "bias": a(state_dict[f"{head}.bias"])}
+    p["log_std"] = a(state_dict["log_std"])
+    return {"params": p}
+
+
+# flax's lecun_normal: a normal truncated at ±2 std, rescaled so that the
+# truncated draw has variance 1 / fan_in (the std of a unit normal truncated
+# at ±2 is 0.87962566103423978)
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_like_flax(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-draw every Linear of `net` as flax's `nn.Dense` defaults do
+    (`lecun_normal` kernel, zero bias) and zero `log_std`, so training from
+    scratch starts from the reference's statistics (`nn.Linear`'s own
+    Kaiming-uniform init is another distribution)."""
+    for m in net.modules():
+        if isinstance(m, nn.Linear):
+            std = math.sqrt(1.0 / m.in_features) / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            nn.init.zeros_(m.bias)
+    if hasattr(net, "log_std"):
+        net.log_std.zero_()
+    return net
+
+
+def gaussian_neglogp(actions, mu, log_std):
+    std = torch.exp(log_std)
+    return (0.5 * torch.sum(torch.square((actions - mu) / std), dim=-1) + torch.sum(log_std)
+            + 0.5 * actions.shape[-1] * math.log(2.0 * math.pi))
+
+
+def sample_actions(mu, log_std, generator: torch.Generator | None = None, noise=None):
+    """mu + exp(log_std) · ε → (actions, neglogp); ε is `noise` when given,
+    else a standard normal drawn from `generator`."""
+    eps = noise if noise is not None else torch.randn(mu.shape, generator=generator,
+                                                      device=mu.device, dtype=mu.dtype)
+    actions = mu + torch.exp(log_std) * eps
+    return actions, gaussian_neglogp(actions, mu, log_std)
+
+
+def policy_kl(mu0, sigma0, mu1, sigma1):
+    """Analytic diagonal-Gaussian KL, averaged over the batch."""
+    c1 = torch.log(sigma1 / sigma0 + 1e-5)
+    c2 = (sigma0**2 + (mu1 - mu0) ** 2) / (2.0 * sigma1**2 + 1e-5)
+    return torch.mean(torch.sum(c1 + c2 - 0.5, dim=-1))
 
 
 def actor_critic_from_jax_params(params, device=None) -> ActorCriticSplit:

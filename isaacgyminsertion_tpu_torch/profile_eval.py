@@ -1,7 +1,9 @@
-"""Where the time of the teacher eval or the student eval goes on the card.
+"""Where the time of the teacher eval, the student eval or PPO training goes
+on the card.
 
     python -m isaacgyminsertion_tpu_torch.profile_eval [--envs 1024] [--steps 20]
     python -m isaacgyminsertion_tpu_torch.profile_eval --student r5|r3 [--envs 256]
+    python -m isaacgyminsertion_tpu_torch.profile_eval --train [--envs 8192] [--steps 10]
 
 Runs the banked r2b teacher's eval loop (policy + env step) at `--envs`
 envs on CUDA, or with `--student` the eval loop of a banked student on the
@@ -16,6 +18,14 @@ prints, as one JSON line:
   - from torch.profiler over `--steps` steps: device-busy ms per step (sum of
     CUDA kernel times), the device's idle share, kernel launches per step,
     and the kernels with the most device time.
+With `--train` it runs PPO teacher training from a fresh network with the
+hyperparameters of scripts/train_s1.sh (horizon 64, 8 mini-epochs): one
+epoch to warm up, then one epoch phase by phase, and prints host ms per
+rollout control step (policy sampling + env step), host ms of each update
+phase of that epoch (bootstrap value + GAE, normalizer updates, batch,
+the mini-epochs of Adam steps), and from torch.profiler the device-busy ms,
+idle share and kernel launches of `--steps` rollout steps and of one update
+phase.
 The card's name and power limit come first, as nvidia-smi prints them.
 """
 
@@ -38,6 +48,7 @@ from .models.actor_critic import actor_critic_from_jax_params
 from .models.running_mean_std import rms_normalize, rms_to
 from .physics import engine
 from .algo import ext_adapt as ea
+from .algo import ppo
 from .algo.trainer import StudentEvaluator
 from .physics import solver_kernel as sk
 from .physics.kinematics import forward_kinematics, site_pose
@@ -70,13 +81,16 @@ def main(argv=None):
     ap.add_argument("--envs", type=int, default=None, help="default 1024, or 256 with --student")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--student", choices=sorted(STUDENTS), default=None)
+    ap.add_argument("--train", action="store_true", help="PPO teacher training (train_s1.sh)")
     args = ap.parse_args(argv)
     if args.envs is None:
-        args.envs = 256 if args.student else 1024
+        args.envs = 8192 if args.train else 256 if args.student else 1024
     dev = resolve_device(None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
+    if args.train:
+        return train_main(args, dev)
 
     cfg = default_task_config()
     model, subs = build_kuka_openhand(), build_subassembly_set()
@@ -136,23 +150,8 @@ def main(argv=None):
                        "tactile_launches_per_step": (rk.tactile_launch_count - counts[0]) / args.steps,
                        "camera_launches_per_step": (rk.camera_launch_count - counts[1]) / args.steps}
 
-        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                  torch.profiler.ProfilerActivity.CUDA])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with prof:
-            for _ in range(args.steps):
-                control_step()
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        prof = _profile(control_step, args.steps)
 
-    events = prof.key_averages()
-    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-    kernels = [e for e in events if dev_us(e) > 0 and not e.key.startswith(("cuda", "aten::"))]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / args.steps
-    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                          "cudaLaunchKernelExC"))
-    top = sorted(kernels, key=dev_us, reverse=True)[:8]
     print(json.dumps({
         "path": f"student_{args.student}" if args.student else "teacher_r2b",
         "envs": args.envs, "steps": args.steps, "reset_ms": t_reset, "step_ms": t_step,
@@ -160,10 +159,81 @@ def main(argv=None):
         "split_ms": {"priv_and_policy": t_act, "env_step": t_env, "substep": t_sub,
                      "substep_pre_solve": t_prep, "contact_solve": t_solve},
         "sensors": sensors,
-        "profiled_step_ms": wall_ms, "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-        "kernel_launches_per_step": launches / args.steps,
-        "top_kernels_ms_per_step": {e.key[:60]: dev_us(e) / 1e3 / args.steps for e in top},
+        "profiled_step_ms": prof["wall_ms"], "device_busy_ms_per_step": prof["busy_ms"],
+        "device_idle_share": prof["idle_share"], "kernel_launches_per_step": prof["launches"],
+        "top_kernels_ms_per_step": prof["top_kernels_ms"],
+    }), flush=True)
+
+
+def _profile(fn, reps: int) -> dict:
+    """fn run `reps` times under torch.profiler → per call: host wall ms,
+    device-busy ms (sum of CUDA kernel times), idle share, kernel launches,
+    and the kernels with the most device time."""
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    events = prof.key_averages()
+    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    # device kernels only: not the host ops above them, and not user annotations
+    # (`Optimizer.step#Adam.step`), whose device-side span would count its kernels twice
+    kernels = [e for e in events if dev_us(e) > 0 and not e.key.startswith(("cuda", "aten::"))
+               and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / reps
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                          "cudaLaunchKernelExC"))
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+            "launches": launches / reps,
+            "top_kernels_ms": {e.key[:60]: dev_us(e) / 1e3 / reps for e in top}}
+
+
+def train_main(args, dev):
+    """`--train`: where an epoch of PPO teacher training goes."""
+    cfg = default_task_config()
+    model, subs = build_kuka_openhand(), build_subassembly_set()
+    c = ppo.PPOConfig(horizon=64, mini_epochs=8)       # scripts/train_s1.sh
+    t_build, (_, _, state, te) = _timed(lambda: ppo.build(cfg, c, model, subs, args.envs, 0,
+                                                          device=dev), 1)
+    t_warm, (state, _) = _timed(lambda: te(state), 1)
+    # one epoch, phase by phase, each closed by a synchronize
+    t_roll, (env_state, traj, _) = _timed(lambda: te.rollout(state), 1)
+    t_adv, (advs, returns) = _timed(lambda: te.advantages(state, env_state, traj), 1)
+    t_rms, (obs_rms, priv_rms, value_rms) = _timed(lambda: te.normalizers(state, traj, returns), 1)
+    t_batch, (batch, _) = _timed(lambda: te.batch(traj, advs, returns, value_rms), 1)
+    t_upd, _ = _timed(lambda: te.update(state, obs_rms, priv_rms, batch), 1)
+    n_mb = c.mini_epochs * c.mini_epochs    # mini_epochs passes of B // (B // mini_epochs) minibatches
+    epoch_ms = t_roll + t_adv + t_rms + t_batch + t_upd
+
+    def control_step():
+        nonlocal env_state
+        env_state, _, _ = te.rollout_step(state, env_state)
+
+    roll = _profile(control_step, args.steps)
+    upd = _profile(lambda: te.update(state, obs_rms, priv_rms, batch), 1)
+    print(json.dumps({
+        "path": "teacher_training", "envs": args.envs, "horizon": c.horizon,
+        "mini_epochs": c.mini_epochs, "minibatch_rows": batch["obs"].shape[0] // c.mini_epochs,
+        "build_and_reset_ms": t_build, "first_epoch_ms": t_warm, "epoch_ms": epoch_ms,
+        "env_steps_per_s": c.horizon * args.envs / epoch_ms * 1e3,
+        "host_ms": {"control_step": t_roll / c.horizon, "rollout": t_roll,
+                    "advantages": t_adv, "normalizers": t_rms, "batch": t_batch, "update": t_upd,
+                    "adam_step": t_upd / n_mb},
+        "rollout_profile": {"steps": args.steps, "profiled_step_ms": roll["wall_ms"],
+                            "device_busy_ms_per_step": roll["busy_ms"],
+                            "device_idle_share": roll["idle_share"],
+                            "kernel_launches_per_step": roll["launches"],
+                            "top_kernels_ms_per_step": roll["top_kernels_ms"]},
+        "update_profile": {"profiled_ms": upd["wall_ms"], "device_busy_ms": upd["busy_ms"],
+                           "device_idle_share": upd["idle_share"], "kernel_launches": upd["launches"],
+                           "top_kernels_ms": upd["top_kernels_ms"]},
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
     }), flush=True)
 
 

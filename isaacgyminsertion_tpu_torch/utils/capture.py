@@ -10,6 +10,7 @@ style of the reference's render parity tests come from here too.
 from __future__ import annotations
 
 import dataclasses
+from statistics import median
 
 import numpy as np
 import torch
@@ -138,8 +139,9 @@ def camera_edge_cases(dev):
 SPIN_CYCLES = 1_000_000   # ~0.5 ms of a spin kernel that touches no memory
 
 
-def cuda_time_ms(fn, reps: int, warmup: int = 3, flush=None) -> float:
-    """Mean time of fn on CUDA events, each call timed alone.
+def cuda_times_ms(fn, reps: int, warmup: int = 3, flush=None) -> list:
+    """The times of `reps` calls of fn on CUDA events, each call timed alone,
+    sorted.
 
     Before every timed call the device is kept busy, so that the host has
     queued the start event, the call and the end event before the device
@@ -163,7 +165,19 @@ def cuda_time_ms(fn, reps: int, warmup: int = 3, flush=None) -> float:
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / reps
+    return sorted(s.elapsed_time(e) for s, e in events)
+
+
+def cuda_time_ms(fn, reps: int, warmup: int = 3, flush=None) -> float:
+    """The median of `cuda_times_ms`: one slow launch does not move it."""
+    return median(cuda_times_ms(fn, reps, warmup, flush))
+
+
+def spread(times) -> str:
+    """min / median / p90 / max of sorted times, for a log line."""
+    p90 = times[min(len(times) - 1, int(0.9 * len(times)))]
+    return (f"min {times[0]:.4f} median {median(times):.4f} p90 {p90:.4f} max {times[-1]:.4f} ms "
+            f"over {len(times)} launches")
 
 
 # The reference's fused-vs-XLA solver tolerances (rtol, atol) per output: the

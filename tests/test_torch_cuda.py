@@ -1,6 +1,7 @@
 """Card-only tests of the port (marker `cuda`): each hand-written kernel (the
 contact solver, the tactile and the camera renderer) against its plain PyTorch
-version, alone and inside an engine or env step. They skip without a GPU. This file imports neither jax nor the JAX
+version, alone and inside an engine or env step, and PPO learning on a fixed
+seed and budget. They skip without a GPU. This file imports neither jax nor the JAX
 package, so it also runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from isaacgyminsertion_tpu_torch.algo import ppo
 from isaacgyminsertion_tpu_torch.assets import build_subassembly_set
 from isaacgyminsertion_tpu_torch.envs import insertion
 from isaacgyminsertion_tpu_torch.envs.config import default_task_config
@@ -349,3 +351,25 @@ def test_tactile_kernel_is_deterministic(cuda_device, kind):
     a, b = draw(), draw()
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ppo_learns_on_fixed_seed_budget(cuda_device):
+    """The port's counterpart of tests/test_env_ppo.py::
+    test_ppo_learns_on_fixed_seed_budget, on the card at the same budget and
+    criterion: 8 envs, 60 epochs of horizon 16, 2 mini-epochs, lr 1e-3; the
+    critic loss's mean over the first 15 epochs must exceed 1.5x its mean over
+    the last 15, and every epoch's KL must be finite."""
+    cfg, model, subs = default_task_config(), build_kuka_openhand(), build_subassembly_set()
+    c = ppo.PPOConfig(horizon=16, mini_epochs=2, learning_rate=1e-3)
+    _, _, state, train_epoch = ppo.build(cfg, c, model, subs, 8, 0, device=cuda_device)
+    c_losses, kls = [], []
+    for _ in range(60):
+        state, m = train_epoch(state)
+        c_losses.append(m["c_loss"])
+        kls.append(m["kl"])
+    head, tail = float(np.mean(c_losses[:15])), float(np.mean(c_losses[-15:]))
+    print(f"ppo learning check: c_loss first15 {head:.4f} last15 {tail:.4f} (ratio {head / tail:.2f}); "
+          f"kl min {min(kls):.4g} max {max(kls):.4g}; launches of the contact solver {sk.launch_count}")
+    assert np.all(np.isfinite(kls)), "KL diverged during the budget"
+    assert tail < head / 1.5, f"critic did not learn: first15={head:.4f} last15={tail:.4f}"

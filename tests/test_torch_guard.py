@@ -1,7 +1,8 @@
 """The port stands alone: no module of isaacgyminsertion_tpu_torch/, and not
 chip_smoke.py, imports jax or the JAX package; its entry points refuse to run
-on the CPU unless asked; its CLI runs the teacher and the student eval and
-no training yet; its kernels have no quiet fall-back."""
+on the CPU unless asked; its CLI trains and evaluates the teacher and
+evaluates the student, and refuses student training and the grasp-dataset
+resets; its kernels have no quiet fall-back."""
 
 import ast
 import os
@@ -37,7 +38,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(sources) > 30
     for module in ("sensors/raycast.py", "sensors/render_kernels.py", "sensors/tactile.py",
                    "sensors/camera.py", "sensors/pcl.py", "sensors/contact_gt.py", "models/student.py",
-                   "algo/ext_adapt.py", "utils/cuda_build.py"):
+                   "algo/ext_adapt.py", "utils/cuda_build.py", "algo/ppo.py", "utils/metrics.py",
+                   "envs/vec_env.py"):
         assert any(p.endswith(os.path.join(PORT, module)) for p in sources), module
     for path in sources:
         tree = ast.parse(open(path).read(), filename=path)
@@ -61,20 +63,36 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
             resolve_device(None)
 
 
-def test_cli_runs_only_the_teacher_eval():
+def test_cli_runs_only_the_teacher_eval(tmp_path):
+    """The teacher's eval and its PPO training parse; training runs only on
+    the device asked for (no GPU and no device=cpu: it raises); student
+    training and the grasp-dataset resets stay refused."""
     args = cli.parse_args(["train.algo=PPO", "test=True", "checkpoint=x", "num_envs=1024",
                            "task.randomize.domain_randomize=False", "task.rl.max_episode_length=7"])
     assert args["test"] and args["num_envs"] == 1024 and args["checkpoint"] == "x"
     assert args["task"].randomize.domain_randomize is False
     assert args["task"].rl.max_episode_length == 7
-    with pytest.raises(SystemExit, match="next slice"):
-        cli.main(["train.algo=PPO", "test=False"])
+    train = ["train.algo=PPO", "test=False", "num_envs=2", "train.ppo.horizon_length=16",
+             "train.ppo.mini_epochs=4", "ppo.anchor_coef=0.5", "max_epochs=1",
+             f"output={tmp_path}"]
+    args = cli.parse_args(train)
+    assert not args["test"] and args["ppo"].horizon == 16 and args["ppo"].mini_epochs == 4
+    assert args["ppo"].anchor_coef == 0.5 and args["max_epochs"] == 1 and args["device"] is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(train)
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(["train.algo=ExtrinsicAdapt", "checkpoint=x", "student_checkpoint=y"])
+    with pytest.raises(SystemExit, match="not ported yet"):
+        cli.main(["train.algo=ExtrinsicAdapt", "test=False", "checkpoint=x", "device=cpu"])
+    with pytest.raises(SystemExit, match="grasp_dataset"):
+        cli.main(train + ["grasp_dataset=grasps.npz", "device=cpu"])
     with pytest.raises(SystemExit, match="student_checkpoint"):
         cli.main(["train.algo=ExtrinsicAdapt", "test=True", "checkpoint=x"])
+    with pytest.raises(SystemExit, match="truncate_grads"):
+        cli.parse_args(["train.ppo.truncate_grads=0.5"])
     with pytest.raises(SystemExit, match="unknown override"):
-        cli.parse_args(["train.ppo.horizon_length=16"])
+        cli.parse_args(["train.ppo.horizon=16"])
 
 
 def test_cli_eval_on_the_cpu_when_asked(capsys):
