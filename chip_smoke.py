@@ -11,8 +11,9 @@ Phases, in order; any failure exits nonzero without printing a result:
   3. each kernel against its plain PyTorch version on the card:
      - contact_solver at N = 1024 envs, C = 255 contacts: a random contact set
        and one captured from a real env substep (with the distribution of
-       active contacts per env); a substep captured at N = 8192, the training
-       path's grid; then edge cases at C = 255, 37 and 200: an
+       active contacts per env); a substep captured at N = 8192, the teacher
+       training path's grid, and one at N = 256 on train_s2.sh's task, the
+       student training path's; then edge cases at C = 255, 37 and 200: an
        env with no active contact, an env with every contact active, C not a
        multiple of 32; all at the reference's fused-vs-XLA solver tolerances;
      - tactile_render (R = 768 rows × 4096 pixels) and camera_render (N = 256
@@ -42,9 +43,10 @@ Phases, in order; any failure exits nonzero without printing a result:
      least time the card could take (bytes or f32 operations at the published
      H100 SXM peaks; operations counted for what this run's data needs: the
      solver's active contacts, the half-planes and quadratic of each row's
-     section family). The solver is timed at 1024, 256 and 8192 envs on the
-     captured contact set and at 1024 and 256 on the random one; the
-     renderers on packed rows with the L2 cache flushed before each launch.
+     section family). The solver is timed at 1024, 256 (train_s2 task) and
+     8192 envs on the captured contact sets and at 1024 and 256 on the
+     random one; the renderers on packed rows with the L2 cache flushed
+     before each launch.
      Each time is the median of single launches, printed with their spread;
   8. main path, teacher training: the PPO training CLI with the
      hyperparameters of scripts/train_s1.sh (horizon 64, 8 mini-epochs) at
@@ -53,7 +55,23 @@ Phases, in order; any failure exits nonzero without printing a result:
      steps, the losses, the KL and the parameter norm finite after each epoch;
      per epoch it prints env-steps/s, the rollout and update seconds, peak
      memory, the KL and the clip fraction. Its last.ckpt must load into the
-     teacher eval CLI and run a 50-step eval at 256 envs to a finite success.
+     teacher eval CLI and run a 50-step eval at 256 envs to a finite success;
+  9. main path, student training: the DAgger training CLI with the arguments
+     of scripts/train_s2.sh as scripts/retrain_student_r5.sh passes them
+     (obs + point cloud, 6-dim action head, render_capacity 0.75, the
+     stratified K = 400k reservoir, β annealed over 6e6 steps), teacher r2b,
+     256 envs for 2 epochs (seed 0), then its final 500-step eval at 64
+     envs: exactly 192 solver and 64 camera launches an epoch and 3 solver
+     and 1 camera launch an eval step, no tactile launch, 32,768 agent
+     steps, the reservoir's cursors and fills as Algorithm R counts them,
+     the losses and parameters finite after each epoch; per epoch it prints
+     env-steps/s, the rollout, normalizer, scatter and update seconds, peak
+     memory and the action loss beside the JAX package's record. Its
+     last.ckpt must load into the student eval CLI and run 50 steps at 256
+     envs to a finite success. Then (9b) one epoch of the tactile variant
+     (student_r3's modalities, latent injection) at 256 envs with a 50-step
+     episode: 192 + 150 solver, 64 + 50 tactile and 64 + 50 camera launches
+     for the epoch and its eval.
 Launch counts are zeroed just before each main path and read just after. The
 line before the last is a JSON object listing every ported kernel with its
 launches summed over the main paths; the last line is {"ok": true, "device": {...}}.
@@ -100,6 +118,17 @@ R3_ARGS = ["train.algo=ExtrinsicAdapt", "test=True", "task.env.tactile=True",
            "task.external_cam.external_cam=True", "task.external_cam.seg_cam=True",
            "task.external_cam.pcl_cam=True", "train.ppo.tactile_info=True", "train.ppo.seg_info=True",
            "train.ppo.pcl_info=True", "train.ppo.obs_info=True", "train.ppo.only_bc=False"]
+# scripts/train_s2.sh as scripts/retrain_student_r5.sh passes it, with the two arguments
+# student_r5's attempt 4 added; phase 9 appends its own depth, seed and eval settings
+TRAIN_S2_ARGS = ["train.algo=ExtrinsicAdapt", "test=False", f"checkpoint={CHECKPOINT}",
+                 "task.external_cam.external_cam=True", "task.external_cam.seg_cam=True",
+                 "task.external_cam.pcl_cam=True", "train.ppo.obs_info=True", "train.ppo.pcl_info=True",
+                 "train.ppo.only_bc=True", "task.reset_at_success=True", "task.reset_at_fails=True",
+                 "task.rand_inits=True", "task.env.render_capacity=0.75", "dagger.replay_size=400000",
+                 "dagger.replay_mode=device_split", "eval_freq_steps=2e6", "eval_envs=256",
+                 "max_epochs=1500", "dagger.replay_stratify=True", "dagger.beta_anneal_steps=6e6"]
+STUDENT_EPOCHS = 2
+R5_RECORD = (0.0700, 0.0208)   # action_loss of epochs 1 and 2, checkpoints/student_r5/metrics.jsonl
 
 
 class PhaseError(RuntimeError):
@@ -196,15 +225,8 @@ def _train(cli, counts_zero, counts, substeps, out_dir):
         raise PhaseError(f"training launches {c}, expected {want}")
     if trainer.state.agent_steps != TRAIN_ENVS * steps:
         raise PhaseError(f"agent_steps {trainer.state.agent_steps}, expected {TRAIN_ENVS * steps}")
-    rows = [json.loads(line) for line in open(os.path.join(out_dir, "metrics.jsonl"))]
-    rows = [r for r in rows if "loss" in r]
-    if len(rows) != TRAIN_EPOCHS:
-        raise PhaseError(f"{len(rows)} epochs logged, expected {TRAIN_EPOCHS}")
+    rows = _epoch_rows(out_dir, TRAIN_EPOCHS, ("loss", "a_loss", "c_loss", "kl", "info/param_norm"))
     for i, r in enumerate(rows):
-        bad = [k for k in ("loss", "a_loss", "c_loss", "kl", "info/param_norm")
-               if not math.isfinite(r[k])]
-        if bad:
-            raise PhaseError(f"epoch {i + 1}: {bad} not finite")
         print(f"training epoch {i + 1}: EnvStepFPS {r['performance/EnvStepFPS']:.1f} env-steps/s, "
               f"rollout {r['time/rollout_s']:.2f} s, update {r['time/update_s']:.2f} s (advantages "
               f"{r['time/advantages_s']:.3f}, normalizers {r['time/normalizers_s']:.3f}, batch "
@@ -225,6 +247,112 @@ def _train(cli, counts_zero, counts, substeps, out_dir):
         raise PhaseError(f"the eval of the trained last.ckpt gave success {success}")
     print(f"main path: the trained last.ckpt in the teacher eval CLI, 256 envs x 50 steps: success "
           f"{success:.4f}", flush=True)
+    return c
+
+
+def _epoch_rows(out_dir, n, keys):
+    """The epochs' rows of a training run's metrics.jsonl, each checked finite."""
+    rows = [json.loads(line) for line in open(os.path.join(out_dir, "metrics.jsonl"))]
+    rows = [r for r in rows if "loss" in r]
+    if len(rows) != n:
+        raise PhaseError(f"{len(rows)} epochs logged, expected {n}")
+    for i, r in enumerate(rows):
+        bad = [k for k in keys if not math.isfinite(r[k])]
+        if bad:
+            raise PhaseError(f"epoch {i + 1}: {bad} not finite")
+    return rows
+
+
+def _train_student(cli, counts_zero, counts, substeps, out_dir):
+    """Phase 9: DAgger student training through the CLI → the launch counts of its run."""
+    import torch
+
+    argv = TRAIN_S2_ARGS + [f"task.env.numEnvs={STUDENT_ENVS}", f"max_epochs={STUDENT_EPOCHS}", "seed=0",
+                            "eval_freq_steps=1e12", "eval_envs=64", f"output={out_dir}"]
+    counts_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = counts()
+    da = trainer.da_cfg
+    # the student eval runs whole chunks of 50 steps: 500 at the recipe's episode length
+    steps, eval_steps = da.horizon * STUDENT_EPOCHS, -(-trainer.cfg_task.rl.max_episode_length // 50) * 50
+    print(f"main path: student training (train_s2.sh as retrain_student_r5.sh runs it: horizon "
+          f"{da.horizon}, {da.mini_epochs} mini-epochs, reservoir {da.replay_size} stratified), "
+          f"{STUDENT_ENVS} envs x {STUDENT_EPOCHS} epochs + a {eval_steps}-step eval at 64 envs: "
+          f"{secs:.2f} s incl. reset and eval, peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, "
+          f"launches {c}", flush=True)
+    want = dict(contact_solver=substeps * (steps + eval_steps), tactile_render=0,
+                camera_render=steps + eval_steps)
+    if c != want:
+        raise PhaseError(f"student training launches {c}, expected {want}")
+    n = STUDENT_ENVS * steps
+    if trainer.state.agent_steps != n:
+        raise PhaseError(f"agent_steps {trainer.state.agent_steps}, expected {n}")
+    res = trainer.train_epoch.reservoir
+    k_a = da.replay_size // 2
+    want_res = (n, n, False, min(n, k_a), min(n, da.replay_size - k_a))   # β stays above 0.5: A collects
+    got_res = (res.cursor, res.cursor_a, res.a_frozen, res.fill_a, res.fill_b)
+    if got_res != want_res:
+        raise PhaseError(f"reservoir (cursor, cursor_a, a_frozen, fill_a, fill_b) {got_res}, "
+                         f"expected {want_res}")
+    rows = _epoch_rows(out_dir, STUDENT_EPOCHS, ("loss", "action_loss", "info/param_norm"))
+    for i, r in enumerate(rows):
+        print(f"student training epoch {i + 1}: EnvStepFPS {r['performance/EnvStepFPS']:.1f} env-steps/s, "
+              f"rollout {r['time/rollout_s']:.2f} s, normalizers {r['time/normalizers_s']:.3f} s, scatter "
+              f"{r['time/scatter_s']:.3f} s, update {r['time/update_s']:.2f} s, peak memory "
+              f"{r['performance/peak_memory_gb']:.3f} GB, action_loss {r['action_loss']:.4f} (the JAX "
+              f"package's record: {R5_RECORD[i]:.4f}), beta {r['episode/beta']:.4f}, reward "
+              f"{r['episode/reward']:.4f}", flush=True)
+    if not all(bool(torch.isfinite(p).all()) for p in trainer.state.net.parameters()):
+        raise PhaseError("a student parameter is not finite after training")
+    print(f"student reservoir: {sum(v.numel() * v.element_size() for v in res.rows.values()) / 1e9:.3f} GB "
+          f"on the card, (cursor, cursor_a, a_frozen, fill_a, fill_b) {got_res}", flush=True)
+    del trainer, res
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(out_dir, "last")
+    success = cli.main(EVAL_S2_ARGS + [f"checkpoint={CHECKPOINT}", f"student_checkpoint={ckpt}",
+                                       f"task.env.numEnvs={STUDENT_ENVS}", "task.rl.max_episode_length=50"])
+    if not (math.isfinite(success) and 0.0 <= success <= 1.0):
+        raise PhaseError(f"the eval of the trained student's last.ckpt gave success {success}")
+    print(f"main path: the trained student's last.ckpt in the student eval CLI, {STUDENT_ENVS} envs x 50 "
+          f"steps: success {success:.4f}", flush=True)
+    return c
+
+
+def _train_student_tactile(cli, counts_zero, counts, substeps, out_dir):
+    """Phase 9b: one DAgger epoch of the tactile variant → the launch counts of its run."""
+    import torch
+
+    argv = [a for a in R3_ARGS if a != "test=True"] + [
+        "test=False", f"checkpoint={CHECKPOINT}", f"task.env.numEnvs={STUDENT_ENVS}", "max_epochs=1",
+        "seed=0", "eval_freq_steps=1e12", "eval_envs=64", "task.rl.max_episode_length=50",
+        f"output={out_dir}"]
+    counts_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = counts()
+    h = trainer.da_cfg.horizon
+    print(f"main path: student training, tactile variant (tactile + seg + pcl, latent injection), "
+          f"{STUDENT_ENVS} envs x 1 epoch + a 50-step eval at 64 envs: {secs:.2f} s incl. reset and eval, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches {c}", flush=True)
+    want = dict(contact_solver=substeps * (h + 50), tactile_render=h + 50, camera_render=h + 50)
+    if c != want:
+        raise PhaseError(f"tactile student training launches {c}, expected {want}")
+    r = _epoch_rows(out_dir, 1, ("loss", "action_loss", "info/param_norm"))[0]
+    print(f"student training, tactile variant: EnvStepFPS {r['performance/EnvStepFPS']:.1f} env-steps/s, "
+          f"rollout {r['time/rollout_s']:.2f} s, update {r['time/update_s']:.2f} s, peak memory "
+          f"{r['performance/peak_memory_gb']:.3f} GB, action_loss {r['action_loss']:.4f}, beta "
+          f"{r['episode/beta']:.4f}", flush=True)
+    if not all(bool(torch.isfinite(p).all()) for p in trainer.state.net.parameters()):
+        raise PhaseError("a student parameter is not finite after the tactile epoch")
     return c
 
 
@@ -301,12 +429,20 @@ def main():
     print(f"kernel vs plain: contact_solver N={N_ENVS} C={real_args[4].depth.shape[1]}: "
           f"random max_abs_err {err_rand:.3e}, env substep max_abs_err {err_real:.3e} "
           f"({int(k_env.sum())} of {real_args[4].depth.numel()} contacts active)", flush=True)
-    # the training path's grid (phase 8 runs the solver at TRAIN_ENVS envs)
+    # the training paths' grids: phase 8 runs the solver at TRAIN_ENVS envs, phase 9 at
+    # STUDENT_ENVS envs on train_s2.sh's task (sensors on, random initial grasps)
     train_args = capture.substep_problem(cfg, model, subs, TRAIN_ENVS, H, dev)
     _, err_train = solver_vs_plain(f"env contacts, {TRAIN_ENVS} envs", train_args)
     print(f"kernel vs plain: contact_solver N={TRAIN_ENVS} C={train_args[4].depth.shape[1]}: env "
           f"substep max_abs_err {err_train:.3e} ({int(capture.active_counts(train_args[4]).sum())} of "
           f"{train_args[4].depth.numel()} contacts active)", flush=True)
+    student_args = capture.substep_problem(cli.parse_args(TRAIN_S2_ARGS)["task"], model, subs,
+                                           STUDENT_ENVS, H, dev)
+    _, err_student = solver_vs_plain(f"env contacts, train_s2 task, {STUDENT_ENVS} envs", student_args)
+    print(f"kernel vs plain: contact_solver N={STUDENT_ENVS} C={student_args[4].depth.shape[1]}: "
+          f"train_s2 task substep max_abs_err {err_student:.3e} "
+          f"({int(capture.active_counts(student_args[4]).sum())} of {student_args[4].depth.numel()} "
+          f"contacts active)", flush=True)
     q = lambda x: int(torch.quantile(k_env, x, interpolation="higher"))
     print(f"contact_solver: active contacts per env on the env substep: min {int(k_env.min())}, "
           f"median {q(0.5)}, p99 {q(0.99)}, max {int(k_env.max())} of {real_args[4].depth.shape[1]}; "
@@ -496,12 +632,11 @@ def main():
         solve = lambda args: time_ms(lambda: sk.solve_contacts_fused_cuda(*args, H), reps=50)
         solver_ms = statistics.median(solver_times)
         row(sk.KERNEL_NAME, "contact_solver.cu", "isaacgyminsertion_tpu/physics/solver_pallas.py:40",
-            max(err_real, err_train), solver_times,
+            max(err_real, err_train, err_student), solver_times,
             time_ms(lambda: sk.solve_contacts_fused_plain(*real_args, H), reps=5, warmup=1),
             sk.flops(n, c, active=int(k_env.sum())), sk.bytes_moved(n, c))
-        real_small = capture.substep_problem(cfg, model, subs, STUDENT_ENVS, H, dev)
         print(f"times: contact_solver env substep {N_ENVS} envs {solver_ms:.4f} ms, "
-              f"{STUDENT_ENVS} envs {solve(real_small):.4f} ms, {TRAIN_ENVS} envs "
+              f"{STUDENT_ENVS} envs (train_s2 task) {solve(student_args):.4f} ms, {TRAIN_ENVS} envs "
               f"{solve(train_args):.4f} ms; random set {N_ENVS} envs "
               f"{solve(rand_args):.4f} ms, {STUDENT_ENVS} envs "
               f"{solve(random_args(STUDENT_ENVS, 255, 0)):.4f} ms", flush=True)
@@ -536,6 +671,15 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as out_dir:
         results["training"] = _train(cli, counts_zero, counts, cfg.sim.substeps, out_dir)
+
+    # ------------------------------------------------------- 9. student training
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_student_") as out_dir:
+        results["student training"] = _train_student(cli, counts_zero, counts, cfg.sim.substeps, out_dir)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_student_tactile_") as out_dir:
+        results["student training, tactile"] = _train_student_tactile(cli, counts_zero, counts,
+                                                                      cfg.sim.substeps, out_dir)
 
     for r in kernel_rows:
         r["launches"] = sum(results[p][r["name"]] for p in results)

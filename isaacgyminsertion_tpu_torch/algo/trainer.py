@@ -1,13 +1,15 @@
-"""Training and evaluation loops: the PPO teacher's epoch loop with its
-telemetry, periodic evals, checkpoint rotation and anneal ladder, and the
-full-episode deterministic evals of a trained teacher or student.
+"""Training and evaluation loops: the PPO teacher's and the DAgger
+student's epoch loops with their telemetry, periodic evals and checkpoint
+rotation (and the teacher's anneal ladder), and the full-episode
+deterministic evals of a trained teacher or student.
 
 Port of `isaacgyminsertion_tpu/algo/trainer.py`: `make_eval_fn`,
 `PPOTrainer` (training), the eval-only `TeacherEvaluator` in place of the
 reference's `PPOTrainer.test` (it evaluates a checkpoint without building a
-training state); `make_student_eval_fn` and
-`DAggerTrainer.test` / `test_log` as `StudentEvaluator` (the student driving
-the sensors-on env). DAgger training is not ported yet.
+training state); `make_student_eval_fn`, `StudentEvaluator` (what the
+reference's `DAggerTrainer.test` / `test_log` do, for banked checkpoints),
+and `DAggerTrainer` (student training; its `test` / `test_log` run
+`StudentEvaluator`'s code on the student in training).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from .. import resolve_device
 from ..envs import insertion
 from ..models.actor_critic import actor_critic_from_jax_params, convert_jax_params, to_jax_params
 from ..models.running_mean_std import rms_normalize, rms_to, rms_to_numpy
-from ..models.student import student_from_jax_params
+from ..models.student import convert_flax_params, student_from_jax_params, student_to_jax_params
 from ..utils.checkpoint import Checkpointer, restore_path
 from ..utils.metrics import AverageScalarMeter, MetricsWriter
 from . import ext_adapt as ea
@@ -286,6 +288,16 @@ class StudentEvaluator:
         self.eval_fn = make_student_eval_fn(eval_task_config(cfg_task), da_cfg, model, subs,
                                             self.teacher, n_envs, device=self.device)
 
+    @classmethod
+    def of(cls, student: ea.StudentBundle, teacher: ea.TeacherBundle, eval_fn, device,
+           out_dir: str | None = None) -> "StudentEvaluator":
+        """An evaluator of a student and a teacher already in memory, with
+        their eval function: the same attributes as from the checkpoints."""
+        runner = cls.__new__(cls)
+        runner.device, runner.out_dir, runner.teacher = device, out_dir, teacher
+        runner.student, runner.eval_fn = student, eval_fn
+        return runner
+
     def test(self, n_episodes: int = 1, seed: int = 1234) -> float:
         """Deterministic student-driven evaluation; prints and returns the success rate."""
         rates = [self.eval_fn(self.student, seed + i) for i in range(n_episodes)]
@@ -329,3 +341,117 @@ class StudentEvaluator:
             fig.savefig(os.path.join(self.out_dir, "noise_study.png"), dpi=110)
             plt.close(fig)
         return results
+
+
+class DAggerTrainer:
+    """Stage-2 student trainer: epochs of `algo/ext_adapt.py`'s DAgger, FPS
+    metering, checkpoint rotation and eval-gated `best_success` banking
+    (a student-driven full-episode eval every `eval_freq_steps` agent steps
+    and once at the end).
+
+    Checkpoints hold `{"student_params", "stud_obs_rms", "pcl_rms"}` in the
+    reference's layout, so `StudentEvaluator` and the reference load them."""
+
+    def __init__(self, cfg_task, da_cfg, model, subs, n_envs, out_dir, teacher_ckpt_path: str,
+                 seed: int = 0, phase3: bool = False, student_ckpt_path: str = "",
+                 gan_ckpt_path: str = "", eval_envs: int | None = None,
+                 eval_freq_steps: float = 2.0e6, device=None):
+        if gan_ckpt_path:
+            raise SystemExit("gan_ckpt_path: the CycleGAN sim→real generator of the tactile frames "
+                             "(algo/gan_runner.py) is not ported yet")
+        self.device = resolve_device(device)
+        self.cfg_task, self.da_cfg, self.model, self.subs, self.n_envs = cfg_task, da_cfg, model, subs, n_envs
+        tree = restore_path(teacher_ckpt_path)
+        self.teacher = ea.TeacherBundle(
+            net=actor_critic_from_jax_params(tree["params"], self.device).requires_grad_(False),
+            obs_rms=rms_to(tree["obs_rms"], self.device), priv_rms=rms_to(tree["priv_rms"], self.device))
+        self.state, self.train_epoch = ea.build(cfg_task, da_cfg, model, subs, n_envs, self.teacher, seed,
+                                                phase3=phase3, device=self.device)
+        if student_ckpt_path:
+            # phase-2/3 restore: continue from a previous student
+            stree = restore_path(student_ckpt_path)
+            self.state.net.load_state_dict(convert_flax_params(stree["student_params"]))
+            self.state = self.state._replace(
+                stud_obs_rms=rms_to(stree.get("stud_obs_rms", self.state.stud_obs_rms), self.device),
+                pcl_rms=rms_to(stree.get("pcl_rms", self.state.pcl_rms), self.device))
+        self.ckpt = Checkpointer(out_dir)
+        self.writer = MetricsWriter(out_dir)
+        self._eval_envs = eval_envs
+        self.eval_freq_steps = eval_freq_steps
+        self._next_eval = eval_freq_steps
+        self._eval_fn = None
+        self._best_eval = float("-inf")
+        self.ckpt.dump_config({"task": cfg_task, "dagger": da_cfg, "num_envs": n_envs, "phase3": phase3})
+
+    def _ckpt_tree(self) -> dict:
+        s = self.state
+        return {"student_params": student_to_jax_params(s.net.state_dict()),
+                "stud_obs_rms": rms_to_numpy(s.stud_obs_rms), "pcl_rms": rms_to_numpy(s.pcl_rms)}
+
+    def _run_eval(self, agent_steps: int) -> float:
+        if self._eval_fn is None:
+            self._eval_fn = self._make_eval_fn(self._eval_envs)
+        sr = self._eval_fn(self.state.student(), int(agent_steps) % (2**31))
+        self.writer.write(agent_steps, {"eval/success_rate": sr})
+        if sr > self._best_eval:
+            self._best_eval = sr
+            self.ckpt.maybe_save_best(self._ckpt_tree(), float("-inf"), sr)
+        print(f"[dagger eval] steps={int(agent_steps)} success={sr:.4f} (best {self._best_eval:.4f})",
+              flush=True)
+        return sr
+
+    def train(self, max_epochs: int = 1000, save_freq: int = 50):
+        steps_per_epoch = self.da_cfg.horizon * self.n_envs
+        cuda = self.device.type == "cuda"
+        t_start = time.perf_counter()
+        bad_epochs = 0
+        for _ in range(max_epochs):
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(self.device)
+            t0 = time.perf_counter()
+            self.state, metrics = self.train_epoch(self.state)
+            metrics["performance/EnvStepFPS"] = steps_per_epoch / (time.perf_counter() - t0)
+            # a non-finite loss never recovers: abort instead of burning card time
+            if not np.isfinite(metrics["loss"]):
+                bad_epochs += 1
+                if bad_epochs >= 3:
+                    raise RuntimeError(
+                        f"[dagger] loss non-finite for {bad_epochs} consecutive epochs (epoch "
+                        f"{self.state.epoch}): {metrics}; check the sensor inputs and the teacher")
+            else:
+                bad_epochs = 0
+            epoch, agent_steps = self.state.epoch, self.state.agent_steps
+            metrics["performance/RLTrainFPS"] = agent_steps / (time.perf_counter() - t_start)
+            with torch.no_grad():
+                metrics["info/param_norm"] = float(torch.sqrt(
+                    sum(torch.sum(p * p) for p in self.state.net.parameters())))
+            if cuda:
+                metrics["performance/peak_memory_gb"] = torch.cuda.max_memory_allocated(self.device) / 1e9
+            self.writer.write(agent_steps, metrics)
+            if epoch % save_freq == 0:
+                self.ckpt.save_last(self._ckpt_tree(), agent_steps)
+            if agent_steps >= self._next_eval:
+                self._next_eval += self.eval_freq_steps
+                self._run_eval(agent_steps)
+        self.ckpt.save_last(self._ckpt_tree(), self.state.agent_steps)
+        # the final eval, so that a short run still banks an eval-gated best
+        self._run_eval(self.state.agent_steps)
+        return self.state
+
+    def _make_eval_fn(self, eval_envs: int | None):
+        """Student evals on `eval_envs or min(n_envs, 64)` envs, under the
+        reference's eval convention (`eval_task_config`)."""
+        return make_student_eval_fn(eval_task_config(self.cfg_task), self.da_cfg, self.model, self.subs,
+                                    self.teacher, eval_envs or min(self.n_envs, 64), device=self.device)
+
+    def _evaluator(self, eval_envs: int | None) -> StudentEvaluator:
+        return StudentEvaluator.of(self.state.student(), self.teacher, self._make_eval_fn(eval_envs),
+                                   self.device, self.ckpt.out_dir)
+
+    def test(self, n_episodes: int = 1, seed: int = 1234, eval_envs: int | None = None) -> float:
+        """`StudentEvaluator.test` on the student in training."""
+        return self._evaluator(eval_envs).test(n_episodes, seed)
+
+    def test_log(self, eval_envs: int | None = None, **kw) -> dict:
+        """`StudentEvaluator.test_log` (the point-cloud noise study) on the student in training."""
+        return self._evaluator(eval_envs).test_log(**kw)

@@ -1,5 +1,5 @@
 """Command line (`key=value` overrides): the reference's train.py for the
-teacher's training and eval and the student's eval.
+teacher's and the student's training and evals.
 
     python -m isaacgyminsertion_tpu_torch.cli train.algo=PPO test=False num_envs=4096 \
         train.ppo.horizon_length=64 train.ppo.mini_epochs=8 output=outputs/teacher
@@ -23,9 +23,22 @@ evaluates a teacher, and
 a student on the sensors-on env (`noise_study=True` adds the point-cloud
 noise sweep, `output=<dir>` is where it writes). Both evals print
 `Success Rate: x` and run `num_envs` envs (`eval_envs=` sets it separately).
-Everything runs on CUDA unless `device=cpu` is given. Student training
-(`ExtrinsicAdapt test=False`) and the grasp-dataset resets (`grasp_dataset=`)
-are not ported yet.
+
+    python -m isaacgyminsertion_tpu_torch.cli train.algo=ExtrinsicAdapt test=False \
+        checkpoint=checkpoints/teacher_r2b/best_success task.env.numEnvs=256 \
+        task.external_cam.external_cam=True task.external_cam.seg_cam=True \
+        task.external_cam.pcl_cam=True train.ppo.obs_info=True train.ppo.pcl_info=True \
+        train.ppo.only_bc=True dagger.replay_size=400000 output=outputs/student
+
+trains a student by DAgger from the teacher `checkpoint=` (scripts/train_s2.sh;
+`dagger.*` sets the DAgger config, `max_epochs=` defaults to 1000,
+`student_checkpoint=` restores a student first, `phase3=True` trains only its
+decoder and latent head; its evals run `eval_envs=` or min(num_envs, 64)
+envs), writing `last.ckpt`, `best_success.ckpt`, `config.json` and
+`metrics.jsonl` into `output`.
+Everything runs on CUDA unless `device=cpu` is given. The grasp-dataset
+resets (`grasp_dataset=`) and the CycleGAN tactile generator
+(`gan_checkpoint=`) are not ported yet.
 """
 
 from __future__ import annotations
@@ -181,13 +194,14 @@ def _set_path(obj, path: str, value):
 def parse_args(argv: list[str] | None = None) -> dict:
     """Returns {task, ppo, dagger, algo, num_envs, eval_envs, test, checkpoint,
     student_checkpoint, noise_study, output, seed, device, max_epochs,
-    eval_freq_steps, grasp_dataset}. `seed` is None unless given: training
-    then seeds with 42 and the evals with 1234, as the reference does."""
+    eval_freq_steps, grasp_dataset, phase3, gan_checkpoint}. `seed` is None
+    unless given: training then seeds with 42 and the evals with 1234, as the
+    reference does."""
     argv = sys.argv[1:] if argv is None else argv
     out = dict(task=default_task_config(), ppo=PPOConfig(), dagger=DAggerConfig(), algo="PPO",
                num_envs=128, eval_envs=None, test=False, checkpoint="", student_checkpoint="",
                noise_study=False, output="outputs/run", seed=None, device=None, max_epochs=None,
-               eval_freq_steps=10.0e6, grasp_dataset="")
+               eval_freq_steps=10.0e6, grasp_dataset="", phase3=False, gan_checkpoint="")
     truncate_grads = None
     for arg in argv:
         if "=" not in arg:
@@ -218,6 +232,10 @@ def parse_args(argv: list[str] | None = None) -> dict:
             out["eval_freq_steps"] = float(val)
         elif k in ("grasp_dataset", "task.grasp_dataset"):
             out["grasp_dataset"] = str(val)
+        elif k in ("phase3", "train.phase3"):
+            out["phase3"] = bool(val)
+        elif k in ("gan_checkpoint", "task.tactile.model_G"):
+            out["gan_checkpoint"] = str(val)
         elif k == "train.ppo.truncate_grads":
             # the reference's boolean: True keeps the grad_norm clip, False
             # turns clipping off. Applied after every override, so that a
@@ -252,19 +270,20 @@ def parse_args(argv: list[str] | None = None) -> dict:
 
 
 def main(argv: list[str] | None = None):
-    """Train a teacher (returns the `PPOTrainer`), or run the teacher or the
-    student eval (returns the success rate)."""
+    """Train a teacher or a student (returns the `PPOTrainer` or the
+    `DAggerTrainer`), or run the teacher or the student eval (returns the
+    success rate)."""
     args = parse_args(argv)
     if args["algo"] not in ("PPO", "ExtrinsicAdapt"):
         raise SystemExit(f"unknown algo {args['algo']!r}")
     if args["grasp_dataset"]:
         raise SystemExit("grasp_dataset= is not ported yet: the grasp-dataset resets wait for "
                          "envs/grasp_gen.py")
-    if args["algo"] == "ExtrinsicAdapt" and not args["test"]:
-        raise SystemExit("ExtrinsicAdapt training is not ported yet (the next slice of the port); "
-                         "run with test=True to evaluate a student")
+    if args["gan_checkpoint"]:
+        raise SystemExit("gan_checkpoint= is not ported yet: the CycleGAN sim→real generator of the "
+                         "tactile frames waits for algo/gan_runner.py")
 
-    from .algo.trainer import PPOTrainer, StudentEvaluator, TeacherEvaluator
+    from .algo.trainer import DAggerTrainer, PPOTrainer, StudentEvaluator, TeacherEvaluator
     from .assets import build_subassembly_set
     from .physics.robot import build_kuka_openhand
 
@@ -277,6 +296,17 @@ def main(argv: list[str] | None = None):
         if args["checkpoint"]:
             trainer.restore(args["checkpoint"])
         trainer.train(max_epochs=args["max_epochs"])
+        return trainer
+    if args["algo"] == "ExtrinsicAdapt" and not args["test"]:
+        if not args["checkpoint"]:
+            raise SystemExit("ExtrinsicAdapt training needs checkpoint=<teacher ckpt>")
+        trainer = DAggerTrainer(args["task"], args["dagger"], model, subs, args["num_envs"], args["output"],
+                                teacher_ckpt_path=args["checkpoint"],
+                                seed=42 if args["seed"] is None else args["seed"], phase3=args["phase3"],
+                                student_ckpt_path=args["student_checkpoint"],
+                                eval_envs=args["eval_envs"], eval_freq_steps=args["eval_freq_steps"],
+                                device=args["device"])
+        trainer.train(max_epochs=args["max_epochs"] or 1000)
         return trainer
     if not args["checkpoint"]:
         raise SystemExit("test=True needs checkpoint=<teacher ckpt>")

@@ -16,9 +16,11 @@ Public inputs keep the reference's layouts (tactile [B, T, F, H, W, C], images
 [B, T, H, W] or [B, T, H, W, C], clouds [B, P, 3]); convolutions run NCHW
 inside. Submodules carry the reference's flax names (`Dense_0`, `Conv_1`,
 `SelfAttention_0` …), so `convert_flax_params` maps a flax tree onto
-`state_dict()` key by key. What differs between the frameworks is written
-out: flax convolutions pad "SAME" (asymmetric for stride 2 on even sizes),
-flax LayerNorm/GroupNorm use eps 1e-6, flax `gelu` is the tanh approximation.
+`state_dict()` key by key and `student_to_jax_params` maps it back. What
+differs between the frameworks is written out: flax convolutions pad "SAME"
+(asymmetric for stride 2 on even sizes), flax LayerNorm/GroupNorm use eps
+1e-6, flax `gelu` is the tanh approximation. `init_student_like_flax` draws
+a fresh student with flax's default initializers.
 """
 
 from __future__ import annotations
@@ -204,6 +206,7 @@ class _Projection(nn.Module):
 
     def __init__(self, kernel_shape, bias_shape, fan_in: int):
         super().__init__()
+        self.fan_in = fan_in   # the contracted axes of the kernel
         self.kernel = nn.Parameter(torch.randn(kernel_shape) / math.sqrt(fan_in))
         self.bias = nn.Parameter(torch.zeros(bias_shape))
 
@@ -357,6 +360,69 @@ def convert_flax_params(params) -> "OrderedDict[str, torch.Tensor]":
                 sd[path] = a
     walk(p, "")
     return sd
+
+
+def student_to_jax_params(state_dict) -> dict:
+    """`MultiModalModel.state_dict()` → the flax tree `{"params": {...}}` as
+    float32 numpy arrays (the inverse of `convert_flax_params`; the layout of
+    the reference's student checkpoints). Linear `weight` → `kernel` [in, out],
+    Conv `weight` OIHW → `kernel` HWIO, norm `weight` → `scale`; biases,
+    attention kernels and `pos_embed` unchanged. Every leaf is a copy, never a
+    view of a parameter."""
+    tree: dict = {}
+    for key, val in state_dict.items():
+        a = np.array(val.detach().cpu(), np.float32)
+        *path, name = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        if name == "weight" and a.ndim == 2:
+            node["kernel"] = np.ascontiguousarray(a.T)
+        elif name == "weight" and a.ndim == 4:
+            node["kernel"] = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+        elif name == "weight":
+            node["scale"] = a
+        else:
+            node[name] = a
+    return {"params": tree}
+
+
+# flax's lecun_normal: a normal truncated at ±2 std, rescaled so that the
+# truncated draw has variance 1 / fan_in (the std of a unit normal truncated
+# at ±2 is 0.87962566103423978)
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_student_like_flax(net: MultiModalModel, generator: torch.Generator) -> MultiModalModel:
+    """Re-draw `net` as flax's defaults initialize the reference's student:
+    Dense, Conv and attention kernels `lecun_normal` over their fan-in (a
+    Conv's is in/groups · kh · kw, an attention projection's its contracted
+    axes), zero biases, norms at scale 1 and bias 0, `pos_embed` normal(0.02)."""
+    def lecun(w, fan_in):
+        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+        nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+    for m in net.modules():
+        if isinstance(m, nn.Linear):
+            lecun(m.weight, m.in_features)
+        elif isinstance(m, nn.Conv2d):
+            lecun(m.weight, m.weight[0].numel())
+        elif isinstance(m, _Projection):
+            lecun(m.kernel, m.fan_in)
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            nn.init.ones_(m.weight)
+        elif isinstance(m, MultiLayerDecoder):
+            m.pos_embed.normal_(0.0, 0.02, generator=generator)
+        if isinstance(getattr(m, "bias", None), torch.Tensor):
+            nn.init.zeros_(m.bias)
+    return net
+
+
+def decoder_only_mask(net: MultiModalModel) -> dict:
+    """Parameter name → trainable, for a phase-3 restore: everything but the
+    token-fusion decoder and the latent head stays frozen."""
+    return {name: ("decoder" in name) or ("latent_head" in name) for name, _ in net.named_parameters()}
 
 
 def _shape(p, *path):

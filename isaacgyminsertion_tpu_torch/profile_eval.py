@@ -4,6 +4,7 @@ on the card.
     python -m isaacgyminsertion_tpu_torch.profile_eval [--envs 1024] [--steps 20]
     python -m isaacgyminsertion_tpu_torch.profile_eval --student r5|r3 [--envs 256]
     python -m isaacgyminsertion_tpu_torch.profile_eval --train [--envs 8192] [--steps 10]
+    python -m isaacgyminsertion_tpu_torch.profile_eval --dagger [--envs 256] [--steps 10]
 
 Runs the banked r2b teacher's eval loop (policy + env step) at `--envs`
 envs on CUDA, or with `--student` the eval loop of a banked student on the
@@ -26,6 +27,14 @@ phase of that epoch (bootstrap value + GAE, normalizer updates, batch,
 the mini-epochs of Adam steps), and from torch.profiler the device-busy ms,
 idle share and kernel launches of `--steps` rollout steps and of one update
 phase.
+With `--dagger` it runs DAgger student training with the recipe of
+scripts/retrain_student_r5.sh (train_s2.sh's obs + point-cloud student,
+the stratified K = 400k reservoir) from the r2b teacher: one epoch to warm
+up, then one epoch phase by phase, and prints host ms per rollout control
+step (teacher + student forward + env step), the normalizer, reservoir
+scatter and update ms of that epoch and ms per Adam step, and from
+torch.profiler the device-busy ms, idle share and kernel launches of
+`--steps` rollout steps and of one update phase.
 The card's name and power limit come first, as nvidia-smi prints them.
 """
 
@@ -82,15 +91,19 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--student", choices=sorted(STUDENTS), default=None)
     ap.add_argument("--train", action="store_true", help="PPO teacher training (train_s1.sh)")
+    ap.add_argument("--dagger", action="store_true",
+                    help="DAgger student training (retrain_student_r5.sh)")
     args = ap.parse_args(argv)
     if args.envs is None:
-        args.envs = 8192 if args.train else 256 if args.student else 1024
+        args.envs = 8192 if args.train else 256 if (args.student or args.dagger) else 1024
     dev = resolve_device(None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
     if args.train:
         return train_main(args, dev)
+    if args.dagger:
+        return dagger_main(args, dev)
 
     cfg = default_task_config()
     model, subs = build_kuka_openhand(), build_subassembly_set()
@@ -225,6 +238,59 @@ def train_main(args, dev):
         "host_ms": {"control_step": t_roll / c.horizon, "rollout": t_roll,
                     "advantages": t_adv, "normalizers": t_rms, "batch": t_batch, "update": t_upd,
                     "adam_step": t_upd / n_mb},
+        "rollout_profile": {"steps": args.steps, "profiled_step_ms": roll["wall_ms"],
+                            "device_busy_ms_per_step": roll["busy_ms"],
+                            "device_idle_share": roll["idle_share"],
+                            "kernel_launches_per_step": roll["launches"],
+                            "top_kernels_ms_per_step": roll["top_kernels_ms"]},
+        "update_profile": {"profiled_ms": upd["wall_ms"], "device_busy_ms": upd["busy_ms"],
+                           "device_idle_share": upd["idle_share"], "kernel_launches": upd["launches"],
+                           "top_kernels_ms": upd["top_kernels_ms"]},
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+    }), flush=True)
+
+
+
+def dagger_main(args, dev):
+    """`--dagger`: where an epoch of DAgger student training goes."""
+    cfg = default_task_config()
+    env_flags, da_flags = STUDENTS["r5"]
+    cfg = cfg.replace(env=dataclasses.replace(cfg.env, render_capacity=0.75, **env_flags),
+                      reset_at_success=True, reset_at_fails=True, rand_inits=True)   # train_s2.sh
+    da = ea.DAggerConfig(replay_size=400_000, replay_stratify=True, beta_anneal_steps=6e6, **da_flags)
+    model, subs = build_kuka_openhand(), build_subassembly_set()
+    tree = restore_path(CKPT)
+    teacher = ea.TeacherBundle(net=actor_critic_from_jax_params(tree["params"], dev).requires_grad_(False),
+                               obs_rms=rms_to(tree["obs_rms"], dev), priv_rms=rms_to(tree["priv_rms"], dev))
+    t_build, (state, te) = _timed(lambda: ea.build(cfg, da, model, subs, args.envs, teacher, 0, device=dev), 1)
+    t_warm, (state, _) = _timed(lambda: te(state), 1)
+    # one epoch; the host time of each phase is what the epoch itself records
+    epoch_ms, (state, m) = _timed(lambda: te(state), 1)
+    host_ms = {p: m[f"time/{p}_s"] * 1e3 for p in ("rollout", "normalizers", "scatter", "update")}
+    n_rows = da.horizon * args.envs
+    mb_size, n_mb = te.minibatch_shape(n_rows)
+    n_steps = da.mini_epochs * n_mb
+    env_state, steps = state.env_state, state.agent_steps
+    student = ea.StudentBundle(state.net, state.stud_obs_rms, state.pcl_rms)
+    update = lambda: te.update(student, state.optimizer, te.reservoir.rows, n_rows, state.train_gen)
+
+    def control_step():
+        nonlocal env_state
+        env_state, _, _, _ = te.rollout_step(state, env_state, steps)
+
+    roll = _profile(control_step, args.steps)
+    upd = _profile(update, 1)
+    res = te.reservoir
+    print(json.dumps({
+        "path": "student_training", "envs": args.envs, "horizon": da.horizon,
+        "mini_epochs": da.mini_epochs, "minibatch_rows": mb_size, "adam_steps": n_steps,
+        "reservoir": {"capacity": da.replay_size, "stratified": da.replay_stratify,
+                      "gb": sum(v.numel() * v.element_size() for v in res.rows.values()) / 1e9,
+                      "fill_a": res.fill_a, "fill_b": res.fill_b},
+        "build_and_reset_ms": t_build, "first_epoch_ms": t_warm, "epoch_ms": epoch_ms,
+        "env_steps_per_s": da.horizon * args.envs / epoch_ms * 1e3,
+        "host_ms": {"control_step": host_ms["rollout"] / da.horizon, **host_ms,
+                    "adam_step": host_ms["update"] / n_steps},
         "rollout_profile": {"steps": args.steps, "profiled_step_ms": roll["wall_ms"],
                             "device_busy_ms_per_step": roll["busy_ms"],
                             "device_idle_share": roll["idle_share"],

@@ -1,20 +1,26 @@
 """Card-only tests of the port (marker `cuda`): each hand-written kernel (the
 contact solver, the tactile and the camera renderer) against its plain PyTorch
-version, alone and inside an engine or env step, and PPO learning on a fixed
-seed and budget. They skip without a GPU. This file imports neither jax nor the JAX
+version, alone and inside an engine or env step, and PPO and DAgger learning
+on a fixed seed and budget. They skip without a GPU. This file imports neither jax nor the JAX
 package, so it also runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from isaacgyminsertion_tpu_torch.algo import ext_adapt as ea
 from isaacgyminsertion_tpu_torch.algo import ppo
 from isaacgyminsertion_tpu_torch.assets import build_subassembly_set
 from isaacgyminsertion_tpu_torch.envs import insertion
 from isaacgyminsertion_tpu_torch.envs.config import default_task_config
+from isaacgyminsertion_tpu_torch.models.actor_critic import actor_critic_from_jax_params
+from isaacgyminsertion_tpu_torch.models.running_mean_std import rms_to
 from isaacgyminsertion_tpu_torch.physics import engine
 from isaacgyminsertion_tpu_torch.physics import solver_kernel as sk
 from isaacgyminsertion_tpu_torch.physics.robot import build_kuka_openhand
@@ -23,6 +29,7 @@ from isaacgyminsertion_tpu_torch.sensors import camera as cam_mod
 from isaacgyminsertion_tpu_torch.sensors import render_kernels as rk
 from isaacgyminsertion_tpu_torch.sensors import tactile as tact_mod
 from isaacgyminsertion_tpu_torch.utils import capture
+from isaacgyminsertion_tpu_torch.utils.checkpoint import restore_path
 
 H = 1.0 / 180.0
 
@@ -373,3 +380,33 @@ def test_ppo_learns_on_fixed_seed_budget(cuda_device):
           f"kl min {min(kls):.4g} max {max(kls):.4g}; launches of the contact solver {sk.launch_count}")
     assert np.all(np.isfinite(kls)), "KL diverged during the budget"
     assert tail < head / 1.5, f"critic did not learn: first15={head:.4f} last15={tail:.4f}"
+
+
+@pytest.mark.cuda
+def test_dagger_learns_on_fixed_seed_budget(cuda_device):
+    """DAgger at scripts/train_s2.sh's modalities (external camera with seg
+    and point cloud on; an obs + point-cloud student with the 6-dim action
+    head) from the fixed r2b teacher, 64 envs, 24 epochs of horizon 16 and 4
+    mini-epochs inside the teacher-only window: the action loss's mean over
+    the last 6 epochs must be below its mean over the first 6, and every
+    epoch's losses finite."""
+    cfg, model, subs = default_task_config(), build_kuka_openhand(), build_subassembly_set()
+    cfg = cfg.replace(env=dataclasses.replace(cfg.env, external_cam=True, seg_cam=True, pcl_cam=True,
+                                              render_capacity=0.75))
+    tree = restore_path(os.path.join(os.path.dirname(__file__), "..", "checkpoints", "teacher_r2b",
+                                     "best_success"))
+    teacher = ea.TeacherBundle(
+        net=actor_critic_from_jax_params(tree["params"], cuda_device).requires_grad_(False),
+        obs_rms=rms_to(tree["obs_rms"], cuda_device), priv_rms=rms_to(tree["priv_rms"], cuda_device))
+    da = ea.DAggerConfig(horizon=16, mini_epochs=4, use_obs=True, use_pcl=True, only_bc=True)
+    state, train_epoch = ea.build(cfg, da, model, subs, 64, teacher, 0, device=cuda_device)
+    losses = []
+    for _ in range(24):
+        state, m = train_epoch(state)
+        assert all(np.isfinite([m["loss"], m["action_loss"], m["episode/reward"]])), m
+        losses.append(m["action_loss"])
+    head, tail = float(np.mean(losses[:6])), float(np.mean(losses[-6:]))
+    print(f"dagger learning check: action_loss first6 {head:.4f} last6 {tail:.4f} (ratio {head / tail:.2f}); "
+          f"beta {m['episode/beta']:.4f}; launches of the camera renderer {rk.camera_launch_count}")
+    assert m["episode/beta"] > 0.99
+    assert tail < head, f"the student did not learn: first6={head:.4f} last6={tail:.4f}"

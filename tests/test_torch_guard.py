@@ -1,8 +1,8 @@
 """The port stands alone: no module of isaacgyminsertion_tpu_torch/, and not
 chip_smoke.py, imports jax or the JAX package; its entry points refuse to run
-on the CPU unless asked; its CLI trains and evaluates the teacher and
-evaluates the student, and refuses student training and the grasp-dataset
-resets; its kernels have no quiet fall-back."""
+on the CPU unless asked; its CLI trains and evaluates the teacher and the
+student, and refuses the grasp-dataset resets and the CycleGAN generator; its
+kernels have no quiet fall-back."""
 
 import ast
 import os
@@ -17,6 +17,17 @@ torch.set_num_threads(1)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PORT = "isaacgyminsertion_tpu_torch"
+TEACHER = os.path.join(ROOT, "checkpoints", "teacher_r2b", "best_success")
+# scripts/retrain_student_r5.sh → scripts/train_s2.sh (python train.py ... "$@"), with the
+# defaults of both and the two arguments student_r5's attempt 4 added
+RETRAIN_R5 = ["train.algo=ExtrinsicAdapt", f"checkpoint={TEACHER}", "task.env.numEnvs=256",
+              "task.external_cam.external_cam=True", "task.external_cam.seg_cam=True",
+              "task.external_cam.pcl_cam=True", "train.ppo.obs_info=True", "train.ppo.pcl_info=True",
+              "train.ppo.only_bc=True", "task.reset_at_success=True", "task.reset_at_fails=True",
+              "task.rand_inits=True", "task.env.render_capacity=0.75", "output=outputs/student",
+              "dagger.replay_size=400000", "dagger.replay_mode=device_split", "eval_freq_steps=2e6",
+              "eval_envs=256", "max_epochs=1500", "output=outputs/student_r5",
+              "dagger.replay_stratify=True", "dagger.beta_anneal_steps=6e6"]
 
 
 def _sources():
@@ -66,7 +77,9 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
 def test_cli_runs_only_the_teacher_eval(tmp_path):
     """The teacher's eval and its PPO training parse; training runs only on
     the device asked for (no GPU and no device=cpu: it raises); student
-    training and the grasp-dataset resets stay refused."""
+    training parses the arguments of scripts/retrain_student_r5.sh and runs
+    only on the device asked for; the grasp-dataset resets and the CycleGAN
+    generator stay refused."""
     args = cli.parse_args(["train.algo=PPO", "test=True", "checkpoint=x", "num_envs=1024",
                            "task.randomize.domain_randomize=False", "task.rl.max_episode_length=7"])
     assert args["test"] and args["num_envs"] == 1024 and args["checkpoint"] == "x"
@@ -81,10 +94,26 @@ def test_cli_runs_only_the_teacher_eval(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(train)
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["train.algo=ExtrinsicAdapt", "checkpoint=x", "student_checkpoint=y"])
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["train.algo=ExtrinsicAdapt", "test=False", "checkpoint=x", "device=cpu"])
+    args = cli.parse_args(RETRAIN_R5)
+    d, e = args["dagger"], args["task"].env
+    assert args["algo"] == "ExtrinsicAdapt" and not args["test"] and args["num_envs"] == 256
+    assert (d.replay_size, d.replay_mode, d.replay_stratify, d.beta_anneal_steps) == (
+        400_000, "device_split", True, 6e6)
+    assert d.use_obs and d.use_pcl and d.only_bc and not d.use_tactile
+    assert e.external_cam and e.seg_cam and e.pcl_cam and e.render_capacity == 0.75
+    assert args["task"].reset_at_success and args["task"].reset_at_fails and args["task"].rand_inits
+    assert (args["eval_freq_steps"], args["eval_envs"], args["max_epochs"]) == (2e6, 256, 1500)
+    assert args["output"] == "outputs/student_r5" and not args["phase3"]
+    assert cli.parse_args(["train.algo=ExtrinsicAdapt", "phase3=True"])["phase3"]
+    assert cli.parse_args(["train.phase3=True"])["phase3"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(["train.algo=ExtrinsicAdapt", "test=False", f"checkpoint={TEACHER}"])
+    with pytest.raises(SystemExit, match="checkpoint=<teacher"):
+        cli.main(["train.algo=ExtrinsicAdapt", "test=False", "device=cpu"])
+    for gan in ("gan_checkpoint=g", "task.tactile.model_G=g"):
+        with pytest.raises(SystemExit, match="CycleGAN"):
+            cli.main(RETRAIN_R5 + [gan, "device=cpu"])
     with pytest.raises(SystemExit, match="grasp_dataset"):
         cli.main(train + ["grasp_dataset=grasps.npz", "device=cpu"])
     with pytest.raises(SystemExit, match="student_checkpoint"):
@@ -93,6 +122,40 @@ def test_cli_runs_only_the_teacher_eval(tmp_path):
         cli.parse_args(["train.ppo.truncate_grads=0.5"])
     with pytest.raises(SystemExit, match="unknown override"):
         cli.parse_args(["train.ppo.horizon=16"])
+
+
+def test_cli_parses_the_student_training_recipe():
+    scripts = "".join(open(os.path.join(ROOT, "scripts", f)).read()
+                      for f in ("train_s2.sh", "retrain_student_r5.sh"))
+    for arg in RETRAIN_R5[2:-2]:
+        assert arg.split("=")[0] in scripts, arg          # the list above is the scripts'
+    args = cli.parse_args(RETRAIN_R5 + ["student_checkpoint=s", "phase3=True", "seed=3"])
+    assert args["student_checkpoint"] == "s" and args["phase3"] and args["seed"] == 3
+
+
+def test_cli_trains_a_student_on_the_cpu_when_asked(tmp_path, capsys):
+    """One epoch of DAgger through the CLI on the CPU: it writes the
+    checkpoints and metrics, the trainer's `test` repeats its final eval,
+    and its last.ckpt loads into the student eval."""
+    from isaacgyminsertion_tpu_torch.algo.trainer import StudentEvaluator
+
+    argv = ["train.algo=ExtrinsicAdapt", "test=False", f"checkpoint={TEACHER}", "num_envs=2",
+            "device=cpu", "max_epochs=1", "dagger.horizon=2", "dagger.mini_epochs=1", "eval_envs=1",
+            "task.rl.max_episode_length=10", f"output={tmp_path}"]
+    trainer = cli.main(argv)
+    assert trainer.state.agent_steps == 4 and trainer.state.epoch == 1
+    assert {"last.ckpt", "best_success.ckpt", "metrics.jsonl", "config.json"} <= set(os.listdir(tmp_path))
+    out = capsys.readouterr().out
+    assert "[dagger eval] steps=4 success=" in out
+    final_sr = float(out.split("[dagger eval] steps=4 success=")[1].split()[0])
+    # the trainer's own eval of the student in training: the final eval's seed is its agent_steps
+    assert trainer.test(seed=4, eval_envs=1) == final_sr
+    assert trainer.test_log(noise_levels=(), eval_envs=1) == {}       # the study's files, no eval
+    assert os.path.exists(tmp_path / "noise_study.jsonl")
+    args = cli.parse_args(argv)
+    runner = StudentEvaluator(args["task"], args["dagger"], None, None, 1, TEACHER, str(tmp_path / "last"),
+                              device="cpu")
+    assert runner.student.net.state_dict().keys() == trainer.state.net.state_dict().keys()
 
 
 def test_cli_eval_on_the_cpu_when_asked(capsys):
