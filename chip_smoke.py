@@ -71,7 +71,30 @@ Phases, in order; any failure exits nonzero without printing a result:
      envs to a finite success. Then (9b) one epoch of the tactile variant
      (student_r3's modalities, latent injection) at 256 envs with a 50-step
      episode: 192 + 150 solver, 64 + 50 tactile and 64 + 50 camera launches
-     for the epoch and its eval.
+     for the epoch and its eval;
+ 10. main path, the data path (scripts/chip_offline_r5.sh at its grid): the
+     teacher-data collection through `train_supervised collect=True` (r2b
+     teacher, 256 envs, depth + seg + point cloud, seed 0, deterministic,
+     chunks of 32, 256 trajectories: one ~500-step episode per env; the
+     banked dataset has 768): exactly 3 solver and 1 camera launch per
+     control step and no tactile launch; the writer, files/s and MB/s of the
+     logger, each record's dtype and per-step shape against the JAX
+     collect's schema and `inspect_trajectories`. Then one epoch of the
+     offline recipe on it (obs + point cloud, only-BC, batch 256, lr 1e-4,
+     the banked normalization.pkl): finite losses and a `last.ckpt` in the
+     flax layout that loads back; the banked offline_r5 student's loss on
+     the collection beside its held-out 0.0168 (fails above 0.05); and the
+     banked student's replay at 256 envs through `offline_training_w_env`
+     beside the banked 0.0039, with its launches (3 solver and 1 camera a
+     step);
+ 10b. the tactile data path: `collect_rotate=True task.env.numEnvs=32`
+     through the CLI (collect_rotate.sh's default, 60 frames): exactly 60
+     tactile launches, images finite and in [0, 1]; each frame the kernel
+     rendered in that run (R = 96 rows, the plug turned, pad force 5.0) held
+     to tactile_render_plain on the inputs it was given, at phase 3's image
+     tolerance (its error joins the kernels line's); then the tactile pose
+     regressor fitted for 8 epochs on those frames against plug_pos ⊕
+     plug_quat: its loss finite and its last epoch below its first.
 Launch counts are zeroed just before each main path and read just after. The
 line before the last is a JSON object listing every ported kernel with its
 launches summed over the main paths; the last line is {"ok": true, "device": {...}}.
@@ -129,6 +152,28 @@ TRAIN_S2_ARGS = ["train.algo=ExtrinsicAdapt", "test=False", f"checkpoint={CHECKP
                  "max_epochs=1500", "dagger.replay_stratify=True", "dagger.beta_anneal_steps=6e6"]
 STUDENT_EPOCHS = 2
 R5_RECORD = (0.0700, 0.0208)   # action_loss of epochs 1 and 2, checkpoints/student_r5/metrics.jsonl
+# scripts/chip_offline_r5.sh: the collection (collect_s1.sh's flags) and the offline recipe
+OFFLINE_R5 = os.path.join(ROOT, "checkpoints", "offline_r5")
+COLLECT_ENVS = 256
+COLLECT_TRAJS = 256             # one episode per env; the banked dataset holds 768
+COLLECT_ARGS = ["collect=True", f"checkpoint={CHECKPOINT}", f"num_envs={COLLECT_ENVS}",
+                f"total_trajectories={COLLECT_TRAJS}", "depth_cam=True", "seg_cam=True", "pcl_cam=True"]
+OFFLINE_ARGS = ["batch_size=256", "only_bc=True", "pcl_info=True", "learning_rate=1e-4",
+                f"teacher_checkpoint={CHECKPOINT}"]
+OFFLINE_R5_VAL = 0.0168         # the banked student's held-out val/loss plateau (metrics.jsonl)
+OFFLINE_R5_REPLAY = 0.0039      # its replay success at 256 envs (replay_eval.txt)
+# the records of the JAX collect (algo/collect.py:39-62) at train_supervised.py's
+# defaults with depth, seg and pcl on: dtype in the chunk, per-step shape
+COLLECT_SCHEMA = {
+    "obs": ("float32", (15,)), "student_obs": ("float32", (15,)), "priv_info": ("float32", (64,)),
+    "actions": ("float32", (6,)), "rewards": ("float32", ()), "latent": ("float32", (8,)),
+    "done": ("bool", ()), "success": ("float32", ()), "plug_pos": ("float32", (3,)),
+    "plug_quat": ("float32", (4,)), "socket_pos": ("float32", (3,)), "socket_quat": ("float32", (4,)),
+    "eef_pos": ("float32", (3,)), "eef_quat": ("float32", (4,)), "img": ("float16", (54, 96)),
+    "seg": ("int8", (54, 96)), "pcl": ("float16", (800, 3)),   # 400 plug + 400 socket points
+}
+ROTATE_FRAMES = 60              # collect_rotating_plug's default n_steps
+ROTATE_ENVS = 32                # scripts/collect_rotate.sh's default
 
 
 class PhaseError(RuntimeError):
@@ -356,11 +401,207 @@ def _train_student_tactile(cli, counts_zero, counts, substeps, out_dir):
     return c
 
 
+def _data_path(counts_zero, counts, substeps, work):
+    """Phase 10: collection, one offline epoch, the banked student's loss on
+    the collection and its replay → the launch counts of the collection and
+    of the replay."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from isaacgyminsertion_tpu_torch import native, train_supervised
+    from isaacgyminsertion_tpu_torch.data.data_io import inspect_trajectories
+    from isaacgyminsertion_tpu_torch.utils.checkpoint import restore_path
+
+    data, out = os.path.join(work, "traj"), os.path.join(work, "offline")
+    counts_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = train_supervised.main(COLLECT_ARGS + [f"data_dir={data}"])
+    secs = time.perf_counter() - t0
+    c_collect = counts()
+    steps = st["steps"]
+    print(f"main path: collection (chip_offline_r5.sh's: r2b teacher, depth + seg + pcl, chunks of 32), "
+          f"{COLLECT_ENVS} envs x {steps} steps -> {st['count']} trajectories: {secs:.2f} s incl. reset, "
+          f"{st['rollout_s'] / steps * 1e3:.2f} ms a control step, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches {c_collect}", flush=True)
+    want = dict(contact_solver=substeps * steps, tactile_render=0, camera_render=steps)
+    if c_collect != want:
+        raise PhaseError(f"collection launches {c_collect}, expected {want}")
+    if st["count"] < COLLECT_TRAJS or st["files"] != st["count"]:
+        raise PhaseError(f"collection wrote {st['files']} files for {st['count']} trajectories")
+    loop = st["rollout_s"] + st["host_copy_s"] + st["logger_s"]
+    print(f"collection: writer {st['writer']} ({native.LIB_PATH or native.BUILD_ERROR}); {st['files']} files, "
+          f"{st['bytes'] / 1e6:.1f} MB; rollout {st['rollout_s']:.2f} s, host copies "
+          f"{st['host_copy_s']:.3f} s, "
+          f"logger {st['logger_s']:.2f} s (add_chunk: median {statistics.median(st['logger_chunk_s']):.3f} s "
+          f"a chunk, {st['logger_chunk_s'][-1]:.2f} s the last, where the episodes end; final drain "
+          f"{st['logger_drain_s']:.2f} s; "
+          f"{st['files'] / st['logger_s']:.1f} files/s, "
+          f"{st['bytes'] / 1e6 / st['logger_s']:.1f} MB/s); host share (copies + logger) "
+          f"{(st['host_copy_s'] + st['logger_s']) / loop:.3f}", flush=True)
+    if st["writer"] != "native .itraj":
+        raise PhaseError(f"the collection fell back to the {st['writer']} writer: {native.BUILD_ERROR}")
+    schema = {k: (d, tuple(s)) for k, (d, s) in st["schema"].items()}
+    if schema != COLLECT_SCHEMA:
+        raise PhaseError(f"collected records {schema}, the JAX collect's {COLLECT_SCHEMA}")
+    files = sorted(f for f in os.listdir(data) if f.endswith(".itraj"))
+    traj = native.read_trajectory(os.path.join(data, files[0]))
+    for k, (dtype, shape) in COLLECT_SCHEMA.items():
+        got = (str(traj[k].dtype), traj[k].shape[1:])
+        if got != (str(native.stored_dtype(dtype)), shape):
+            raise PhaseError(f"{files[0]}:{k} stored as {got}, expected {native.stored_dtype(dtype)} {shape}")
+    summary = inspect_trajectories(data)
+    print(f"collection: schema of {len(COLLECT_SCHEMA)} keys as the JAX collect's; inspect_trajectories "
+          f"{summary}", flush=True)
+    if summary["num_trajectories"] != st["count"]:
+        raise PhaseError(f"inspect_trajectories read {summary['num_trajectories']} of {st['count']}")
+
+    # one epoch of the offline recipe, on the banked normalizer
+    shutil.copy(os.path.join(OFFLINE_R5, "normalization.pkl"), data)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = train_supervised.main([f"data_dir={data}", f"output={out}", "epochs=1"] + OFFLINE_ARGS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    m = json.loads(open(os.path.join(out, "metrics.jsonl")).readlines()[-1])
+    if not (math.isfinite(m["train/loss"]) and math.isfinite(m["val/loss"])):
+        raise PhaseError(f"offline epoch losses {m}")
+    tree = restore_path(os.path.join(out, "last"))
+    kernel = tree["student_params"]["params"]["obs_enc"]["Dense_0"]["kernel"]
+    if np.asarray(kernel).shape != (15, 128):
+        raise PhaseError(f"last.ckpt's obs_enc kernel {np.asarray(kernel).shape}: not the flax layout")
+    before = [p.detach().clone() for p in runner.student.parameters()]
+    runner.restore(os.path.join(out, "last"))
+    if not all(torch.equal(a, b) for a, b in zip(before, runner.student.parameters())):
+        raise PhaseError("last.ckpt did not load back into the offline student")
+    print(f"main path: offline epoch (obs + pcl, only-BC, batch 256), {len(runner.dataset)} train and "
+          f"{len(runner.val_dataset)} held-out samples, {runner.updates} Adam steps: {secs:.2f} s incl. "
+          f"loading the data, peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, train/loss "
+          f"{m['train/loss']:.5f}, val/loss {m['val/loss']:.5f}; last.ckpt in the flax layout loads back",
+          flush=True)
+
+    # the banked offline_r5 student on this collection, with the banked normalizer
+    runner.restore(os.path.join(OFFLINE_R5, "last"))
+    t0 = time.perf_counter()
+    losses, n = 0.0, 0
+    for ds in (runner.dataset, runner.val_dataset):
+        for batch in ds.batches(min(256, len(ds)), np.random.default_rng(1)):
+            losses += float(runner.eval_step(runner._prepare(batch, None, augment=False))["loss"])
+            n += 1
+    if n == 0:
+        raise PhaseError("the collection gave no batch for the distribution check")
+    loss = losses / n
+    print(f"distribution check: the banked offline_r5 student's only-BC loss on this collection "
+          f"{loss:.5f} over {n} batches ({time.perf_counter() - t0:.2f} s) beside its held-out "
+          f"{OFFLINE_R5_VAL} on the banked data; band 0.0084-0.034"
+          + ("" if 0.0084 <= loss <= 0.034 else ": OUTSIDE, a fault for ROADMAP"), flush=True)
+    if not (math.isfinite(loss) and loss <= 3 * OFFLINE_R5_VAL):
+        raise PhaseError(f"the banked student's loss on the collection is {loss} (> 0.05 or not finite)")
+    del runner
+    torch.cuda.empty_cache()
+
+    # the banked student's replay, through train_supervised's offline_training_w_env
+    counts_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = train_supervised.main([f"data_dir={data}", f"output={out}_replay", "epochs=0",
+                                    f"restore={os.path.join(OFFLINE_R5, 'last')}",
+                                    "offline_training_w_env=True", f"num_envs={COLLECT_ENVS}"]
+                                   + OFFLINE_ARGS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c_replay = counts()
+    sr = runner.replay_success
+    print(f"main path: offline_r5 replay, {COLLECT_ENVS} envs x 500 steps: success {sr:.4f} beside the "
+          f"banked {OFFLINE_R5_REPLAY}" + ("" if sr <= 0.02 else " (above 0.02: a fault for ROADMAP)")
+          + f"; {secs:.2f} s incl. loading the data, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches {c_replay}", flush=True)
+    if not (math.isfinite(sr) and 0.0 <= sr <= 1.0):
+        raise PhaseError(f"replay success {sr}")
+    want = dict(contact_solver=substeps * 500, tactile_render=0, camera_render=500)
+    if c_replay != want:
+        raise PhaseError(f"replay launches {c_replay}, expected {want}")
+    return c_collect, c_replay
+
+
+def _tactile_data_path(cli, counts_zero, counts, work):
+    """Phase 10b: rotating-plug frames through the CLI, each frame the kernel
+    rendered held to the plain renderer on the same inputs, then the tactile
+    pose regressor on them → (the launch counts of the collection, the
+    frames' max abs error against the plain renderer)."""
+    import numpy as np
+    import torch
+
+    from isaacgyminsertion_tpu_torch.algo.tactile_runner import TactileRegressionRunner, TactileRunnerConfig
+    from isaacgyminsertion_tpu_torch.sensors import render_kernels as rk
+
+    frames_in = []   # (inputs, kernel output) of every tactile render of the run
+    render = rk.tactile_render
+
+    def recording_render(*args, **kw):
+        img = render(*args, **kw)
+        frames_in.append(([a.clone() for a in args], dict(kw), img.clone()))
+        return img
+
+    counts_zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rk.tactile_render = recording_render
+    try:
+        n = cli.main(["collect_rotate=True", f"task.env.numEnvs={ROTATE_ENVS}", f"output={work}/tactile_rot"])
+    finally:
+        rk.tactile_render = render
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = counts()
+    print(f"main path: rotating-plug collection, {ROTATE_ENVS} envs x {ROTATE_FRAMES} frames ({n}): "
+          f"{secs:.2f} s incl. reset, launches {c}", flush=True)
+    want = dict(contact_solver=0, tactile_render=ROTATE_FRAMES, camera_render=0)
+    if c != want:
+        raise PhaseError(f"rotating-plug launches {c}, expected {want}")
+    with np.load(f"{work}/tactile_rot_rotate.npz") as d:
+        tactile, quat, pos = d["tactile"], d["plug_quat"], d["plug_pos"]
+    if not (np.isfinite(tactile).all() and tactile.min() >= 0.0 and tactile.max() <= 1.0):
+        raise PhaseError("rotating-plug frames not finite or outside [0, 1]")
+    if len(frames_in) != ROTATE_FRAMES:
+        raise PhaseError(f"{len(frames_in)} tactile renders recorded, expected {ROTATE_FRAMES}")
+    errs, shares = [], []
+    with torch.no_grad():
+        for t, (args, kw, img) in enumerate(frames_in):
+            if args[0].device.type != "cuda":
+                raise PhaseError(f"rotating-plug frame {t} was rendered on {args[0].device}")
+            e, share = _compare_images(f"tactile_render rotating plug, frame {t}", img,
+                                       rk.tactile_render_plain(*args, **kw))
+            errs.append(e)
+            shares.append(share)
+    lit = float((frames_in[-1][2] > 0.01).float().mean())
+    print(f"kernel vs plain: tactile_render exact R={frames_in[0][0][0].shape[0]} (rotating plug, "
+          f"{ROTATE_FRAMES} frames, force 5.0): max_abs_err {max(errs):.3e}, at most {max(shares):.5%} "
+          f"of a frame's pixels flipped, last frame {lit:.3%} lit", flush=True)
+    frames = tactile.reshape((-1,) + tactile.shape[2:])
+    targets = np.concatenate([np.broadcast_to(pos[:, None], quat.shape[:2] + (3,)), quat], -1).reshape(-1, 7)
+    t0 = time.perf_counter()
+    reg = TactileRegressionRunner(TactileRunnerConfig(epochs=8), os.path.join(work, "tactile_reg"))
+    last = reg.fit(frames, targets)
+    el = reg.epoch_losses
+    print(f"tactile regressor: {frames.shape[0]} frames {frames.shape[1:]}, 8 epochs in "
+          f"{time.perf_counter() - t0:.2f} s; mean loss by epoch {[round(x, 6) for x in el]}, last step "
+          f"{last:.6f}; frames mean {float(tactile.mean()):.4f}", flush=True)
+    if not (all(math.isfinite(x) for x in el) and len(el) == 8 and el[-1] < el[0]):
+        raise PhaseError(f"the tactile regressor's loss did not fall: {el}")
+    return c, max(errs)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
                     help="build, compare and time the kernels; skip the main paths (no result line)")
     opts = ap.parse_args()
+    t_start = time.perf_counter()
     import torch
 
     # ---------------------------------------------------------------- 1. device
@@ -681,8 +922,20 @@ def main():
         results["student training, tactile"] = _train_student_tactile(cli, counts_zero, counts,
                                                                       cfg.sim.substeps, out_dir)
 
+    # ------------------------------------------------------- 10. the data path
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as work:
+        results["collection"], results["offline replay"] = _data_path(counts_zero, counts,
+                                                                      cfg.sim.substeps, work)
+        torch.cuda.empty_cache()
+        results["rotating plug"], err_rotate = _tactile_data_path(cli, counts_zero, counts, work)
+    for r in kernel_rows:
+        if r["name"] == "tactile_render":
+            r["max_abs_err"] = max(r["max_abs_err"], err_rotate)
+
     for r in kernel_rows:
         r["launches"] = sum(results[p][r["name"]] for p in results)
+    print(f"launches by path: {json.dumps(results)}; {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

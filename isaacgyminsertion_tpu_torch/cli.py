@@ -36,6 +36,12 @@ trains a student by DAgger from the teacher `checkpoint=` (scripts/train_s2.sh;
 decoder and latent head; its evals run `eval_envs=` or min(num_envs, 64)
 envs), writing `last.ckpt`, `best_success.ckpt`, `config.json` and
 `metrics.jsonl` into `output`.
+
+    python -m isaacgyminsertion_tpu_torch.cli collect_rotate=True task.env.numEnvs=32 \
+        output=outputs/tactile_rot
+
+spins each env's grasped plug in hand for 60 frames and writes their tactile
+images and plug poses to `{output}_rotate.npz` (scripts/collect_rotate.sh).
 Everything runs on CUDA unless `device=cpu` is given. The grasp-dataset
 resets (`grasp_dataset=`) and the CycleGAN tactile generator
 (`gan_checkpoint=`) are not ported yet.
@@ -194,14 +200,15 @@ def _set_path(obj, path: str, value):
 def parse_args(argv: list[str] | None = None) -> dict:
     """Returns {task, ppo, dagger, algo, num_envs, eval_envs, test, checkpoint,
     student_checkpoint, noise_study, output, seed, device, max_epochs,
-    eval_freq_steps, grasp_dataset, phase3, gan_checkpoint}. `seed` is None
-    unless given: training then seeds with 42 and the evals with 1234, as the
-    reference does."""
+    eval_freq_steps, grasp_dataset, phase3, gan_checkpoint, collect_rotate}.
+    `seed` is None unless given: training then seeds with 42 and the evals
+    with 1234, as the reference does."""
     argv = sys.argv[1:] if argv is None else argv
     out = dict(task=default_task_config(), ppo=PPOConfig(), dagger=DAggerConfig(), algo="PPO",
                num_envs=128, eval_envs=None, test=False, checkpoint="", student_checkpoint="",
                noise_study=False, output="outputs/run", seed=None, device=None, max_epochs=None,
-               eval_freq_steps=10.0e6, grasp_dataset="", phase3=False, gan_checkpoint="")
+               eval_freq_steps=10.0e6, grasp_dataset="", phase3=False, gan_checkpoint="",
+               collect_rotate=False)
     truncate_grads = None
     for arg in argv:
         if "=" not in arg:
@@ -232,6 +239,8 @@ def parse_args(argv: list[str] | None = None) -> dict:
             out["eval_freq_steps"] = float(val)
         elif k in ("grasp_dataset", "task.grasp_dataset"):
             out["grasp_dataset"] = str(val)
+        elif k in ("collect_rotate", "task.collect_rotate"):
+            out["collect_rotate"] = bool(val)
         elif k in ("phase3", "train.phase3"):
             out["phase3"] = bool(val)
         elif k in ("gan_checkpoint", "task.tactile.model_G"):
@@ -271,8 +280,9 @@ def parse_args(argv: list[str] | None = None) -> dict:
 
 def main(argv: list[str] | None = None):
     """Train a teacher or a student (returns the `PPOTrainer` or the
-    `DAggerTrainer`), or run the teacher or the student eval (returns the
-    success rate)."""
+    `DAggerTrainer`), run the teacher or the student eval (returns the
+    success rate), or collect rotating-plug tactile frames (returns their
+    number)."""
     args = parse_args(argv)
     if args["algo"] not in ("PPO", "ExtrinsicAdapt"):
         raise SystemExit(f"unknown algo {args['algo']!r}")
@@ -288,6 +298,13 @@ def main(argv: list[str] | None = None):
     from .physics.robot import build_kuka_openhand
 
     model, subs = build_kuka_openhand(), build_subassembly_set()
+    if args["collect_rotate"]:
+        from .algo.collect import collect_rotating_plug
+
+        n = collect_rotating_plug(args["task"], model, subs, n_envs=args["num_envs"],
+                                  out_path=f"{args['output']}_rotate.npz", device=args["device"])
+        print(f"collected {n} rotating-plug tactile frames")
+        return n
     if args["algo"] == "PPO" and not args["test"]:
         trainer = PPOTrainer(args["task"], args["ppo"], model, subs, args["num_envs"], args["output"],
                              seed=42 if args["seed"] is None else args["seed"],

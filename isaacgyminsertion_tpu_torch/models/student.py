@@ -198,7 +198,9 @@ class PointNet(nn.Module):
         x = pts
         for dense in (self.Dense_0, self.Dense_1, self.Dense_2):
             x = F.relu(dense(x))
-        return torch.max(x, dim=-2).values  # [B, out_dim]
+        # amax, not max(dim): its gradient is shared among tied maxima, as
+        # jnp.max's is (max(dim) sends it all to one of them)
+        return torch.amax(x, dim=-2)  # [B, out_dim]
 
 
 class _Projection(nn.Module):
@@ -328,6 +330,21 @@ class MultiModalModel(nn.Module):
         return torch.tanh(out) if self.bc_mode else out
 
 
+class TactileHead(nn.Module):
+    """The tactile pose regressor of `algo/tactile_runner.py` (the
+    reference's inline flax `Head`): `TactileCNN` → Dense 64 → ReLU → Dense
+    `target_dim`, submodules named as flax names them."""
+
+    def __init__(self, in_ch: int = 9, target_dim: int = 7):
+        super().__init__()
+        self.TactileCNN_0 = TactileCNN(in_ch, 64)
+        self.Dense_0 = nn.Linear(64, 64)
+        self.Dense_1 = nn.Linear(64, target_dim)
+
+    def forward(self, x):  # [B, F, H, W, C]
+        return self.Dense_1(F.relu(self.Dense_0(self.TactileCNN_0(x))))
+
+
 # ------------------------------------------------------------------ conversion
 
 
@@ -363,12 +380,13 @@ def convert_flax_params(params) -> "OrderedDict[str, torch.Tensor]":
 
 
 def student_to_jax_params(state_dict) -> dict:
-    """`MultiModalModel.state_dict()` → the flax tree `{"params": {...}}` as
-    float32 numpy arrays (the inverse of `convert_flax_params`; the layout of
-    the reference's student checkpoints). Linear `weight` → `kernel` [in, out],
-    Conv `weight` OIHW → `kernel` HWIO, norm `weight` → `scale`; biases,
-    attention kernels and `pos_embed` unchanged. Every leaf is a copy, never a
-    view of a parameter."""
+    """The `state_dict()` of any module of this file (`MultiModalModel`,
+    `TactileHead`, …) → the flax tree `{"params": {...}}` as float32 numpy
+    arrays (the inverse of `convert_flax_params`; the layout of the
+    reference's student and tactile-regressor checkpoints). Linear `weight`
+    → `kernel` [in, out], Conv `weight` OIHW → `kernel` HWIO, norm `weight`
+    → `scale`; biases, attention kernels and `pos_embed` unchanged. Every
+    leaf is a copy, never a view of a parameter."""
     tree: dict = {}
     for key, val in state_dict.items():
         a = np.array(val.detach().cpu(), np.float32)
@@ -458,3 +476,14 @@ def student_from_jax_params(tree, da_cfg, env_cfg, device=None) -> MultiModalMod
         num_tokens=_shape(p, "decoder", "pos_embed")[1], scene_points="pn_scene" in p, **kw)
     net.load_state_dict(convert_flax_params(p))
     return net.to(device).eval()
+
+
+def tactile_head_from_jax_params(tree, device=None) -> TactileHead:
+    """A `TactileHead` sized from and loaded with the reference regressor's
+    flax tree (`TactileCNN_0`, `Dense_0`, `Dense_1`; with or without its
+    top-level "params" key). `student_to_jax_params` is the inverse."""
+    p = tree.get("params", tree)
+    net = TactileHead(in_ch=_shape(p, "TactileCNN_0", "Conv_0", "kernel")[2],
+                      target_dim=_shape(p, "Dense_1", "kernel")[1])
+    net.load_state_dict(convert_flax_params(p))
+    return net.to(device)

@@ -1,8 +1,9 @@
 """Card-only tests of the port (marker `cuda`): each hand-written kernel (the
 contact solver, the tactile and the camera renderer) against its plain PyTorch
-version, alone and inside an engine or env step, and PPO and DAgger learning
-on a fixed seed and budget. They skip without a GPU. This file imports neither jax nor the JAX
-package, so it also runs on a machine that has only PyTorch:
+version, alone and inside an engine or env step, PPO and DAgger learning on a
+fixed seed and budget, and the teacher-data collection's launches and files.
+They skip without a GPU. This file imports neither jax nor the JAX package,
+so it also runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -410,3 +411,71 @@ def test_dagger_learns_on_fixed_seed_budget(cuda_device):
           f"beta {m['episode/beta']:.4f}; launches of the camera renderer {rk.camera_launch_count}")
     assert m["episode/beta"] > 0.99
     assert tail < head, f"the student did not learn: first6={head:.4f} last6={tail:.4f}"
+
+
+def _collect_cfg():
+    cfg = default_task_config()
+    return cfg.replace(rl=dataclasses.replace(cfg.rl, max_episode_length=10),
+                       env=dataclasses.replace(cfg.env, tactile=True, external_cam=True, depth_cam=True,
+                                               seg_cam=True, pcl_cam=True))
+
+
+@pytest.mark.cuda
+def test_collection_launch_counts_on_the_card(cuda_device, tmp_path):
+    """The teacher-data collection with every sensor on: one tactile and one
+    camera launch and three solver launches per control step, and nothing
+    else; one .itraj per finished env, read back with the recorded dtypes."""
+    from isaacgyminsertion_tpu_torch.algo.collect import collect_teacher_rollouts
+    from isaacgyminsertion_tpu_torch.native import read_trajectory
+
+    cfg, model, subs = _collect_cfg(), build_kuka_openhand(), build_subassembly_set()
+    tree = restore_path(os.path.join(os.path.dirname(__file__), "..", "checkpoints", "teacher_r2b",
+                                     "best_success"))
+    net = actor_critic_from_jax_params(tree["params"], cuda_device)
+    sk.launch_count = rk.tactile_launch_count = rk.camera_launch_count = 0
+    stats = {}
+    n = collect_teacher_rollouts(cfg, model, subs, net, tree["obs_rms"], tree["priv_rms"], 8,
+                                 str(tmp_path), total_trajectories=8, chunk=11, device=cuda_device,
+                                 stats=stats)
+    steps = stats["steps"]
+    assert n == 8 and steps == 11 and stats["writer"] == "native .itraj"
+    assert (sk.launch_count, rk.tactile_launch_count, rk.camera_launch_count) == (3 * steps, steps, steps)
+    d = read_trajectory(str(tmp_path / "traj_000000.itraj"))
+    assert d["obs"].dtype == np.float32 and d["done"].dtype == np.bool_ and d["done"][-1]
+    for k in ("tactile", "img", "seg", "pcl"):       # float16 / int8 are stored as float32
+        assert d[k].dtype == np.float32 and np.isfinite(d[k]).all(), k
+    assert set(np.unique(d["seg"])) <= {0.0, 1.0, 2.0, 3.0}
+
+
+@pytest.mark.cuda
+def test_itraj_round_trip_of_a_card_collected_chunk(cuda_device, tmp_path):
+    """A chunk stacked on the card reaches the host in one copy with every
+    array's bytes intact, and the logger's .itraj files hold them exactly."""
+    from isaacgyminsertion_tpu_torch.algo.collect import host_copy
+    from isaacgyminsertion_tpu_torch.data.logger import DataLoggerSim
+    from isaacgyminsertion_tpu_torch.native import read_trajectory
+
+    cfg, model, subs = _collect_cfg(), build_kuka_openhand(), build_subassembly_set()
+    gen = insertion.make_generator(0, cuda_device)
+    recs = []
+    with torch.no_grad():
+        state = insertion.reset_all(cfg, model, subs, gen, 4)
+        for t in range(3):
+            act = torch.full((4, 6), 0.1, device=cuda_device)
+            state, out = insertion.step(cfg, model, subs, state, act, gen)
+            recs.append(dict(obs=out.obs, rewards=out.rew, done=torch.full((4,), t == 2, device=cuda_device),
+                             tactile=out.tactile[:, 0].half(), seg=out.seg[:, 0].to(torch.int8),
+                             pcl=out.pcl[:, 0].half(), step=torch.full((4,), t, device=cuda_device)))
+    chunk = {k: torch.stack([r[k] for r in recs]) for k in recs[0]}
+    host = host_copy(chunk)
+    for k, v in chunk.items():
+        ref = v.cpu().numpy()
+        assert host[k].dtype == ref.dtype and host[k].shape == ref.shape, k
+        np.testing.assert_array_equal(host[k], ref, err_msg=k)
+    lg = DataLoggerSim(str(tmp_path), 4, total_trajectories=4)
+    lg.add_chunk(host)
+    lg.close()
+    for i in range(4):
+        d = read_trajectory(str(tmp_path / f"traj_{i:06d}.itraj"))
+        for k, v in host.items():
+            np.testing.assert_array_equal(d[k], v[:, i].astype(d[k].dtype), err_msg=k)

@@ -1,8 +1,9 @@
 """The port stands alone: no module of isaacgyminsertion_tpu_torch/, and not
 chip_smoke.py, imports jax or the JAX package; its entry points refuse to run
 on the CPU unless asked; its CLI trains and evaluates the teacher and the
-student, and refuses the grasp-dataset resets and the CycleGAN generator; its
-kernels have no quiet fall-back."""
+student, collects rotating-plug frames, and refuses the grasp-dataset resets
+and the CycleGAN generator; its kernels have no quiet fall-back; its native
+trajectory writer builds into the package's `_build/` only."""
 
 import ast
 import os
@@ -50,7 +51,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for module in ("sensors/raycast.py", "sensors/render_kernels.py", "sensors/tactile.py",
                    "sensors/camera.py", "sensors/pcl.py", "sensors/contact_gt.py", "models/student.py",
                    "algo/ext_adapt.py", "utils/cuda_build.py", "algo/ppo.py", "utils/metrics.py",
-                   "envs/vec_env.py"):
+                   "envs/vec_env.py", "native/__init__.py", "data/dataset.py", "data/logger.py",
+                   "data/data_io.py", "algo/collect.py", "algo/offline_runner.py",
+                   "algo/tactile_runner.py", "train_supervised.py", "utils/host_build.py"):
         assert any(p.endswith(os.path.join(PORT, module)) for p in sources), module
     for path in sources:
         tree = ast.parse(open(path).read(), filename=path)
@@ -240,3 +243,49 @@ def test_sensor_flags_are_refused():
         assert tuple(state.tactile_queue.shape) == (2, 1, 3, 64, 64, 3) and state.img_queue.numel() == 0
         with pytest.raises(NotImplementedError):
             insertion.step(cfg, model, subs, state, torch.zeros((2, 6)), gen, gan_params={})
+
+
+def test_data_entry_points_run_only_on_the_device_asked_for(tmp_path):
+    """train_supervised (collect, offline training) and the rotating-plug
+    collection raise without a GPU unless device=cpu is given; the CLI parses
+    scripts/collect_rotate.sh's arguments."""
+    from isaacgyminsertion_tpu_torch import train_supervised
+
+    script = open(os.path.join(ROOT, "scripts", "collect_rotate.sh")).read()
+    assert "collect_rotate=True" in script and "task.env.numEnvs=" in script
+    args = cli.parse_args(["collect_rotate=True", "task.env.numEnvs=32", "output=outputs/tactile_rot"])
+    assert args["collect_rotate"] and args["num_envs"] == 32 and args["output"] == "outputs/tactile_rot"
+    assert cli.parse_args(["task.collect_rotate=True"])["collect_rotate"]
+    if not torch.cuda.is_available():
+        for argv in (["collect=True", f"checkpoint={TEACHER}", f"data_dir={tmp_path}"],
+                     [f"data_dir={tmp_path}", "epochs=1"]):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                train_supervised.main(argv)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(["collect_rotate=True", "num_envs=1", f"output={tmp_path}/r"])
+    assert cli.main(["collect_rotate=True", "num_envs=1", f"output={tmp_path}/r", "device=cpu"]) == 60
+    assert os.path.exists(tmp_path / "r_rotate.npz")
+
+
+def test_native_writer_builds_into_the_package_build_dir_only():
+    """trajlog.cpp is compiled into isaacgyminsertion_tpu_torch/_build/ under
+    a name hashed from its source and flags; nothing is written beside the
+    source, and the JAX package's committed library is never the one loaded."""
+    from isaacgyminsertion_tpu_torch import native
+    from isaacgyminsertion_tpu_torch.utils import host_build
+
+    native_dir = os.path.join(ROOT, PORT, "native")
+    jax_native = os.path.join(ROOT, "isaacgyminsertion_tpu", "native")
+    before = {d: sorted(os.listdir(d)) for d in (native_dir, jax_native)}
+    stamps = {f: os.stat(os.path.join(jax_native, f)).st_mtime_ns for f in before[jax_native]}
+    if native.load() is None:
+        assert native.BUILD_ERROR
+        pytest.skip(f"g++ or zlib unavailable: {native.BUILD_ERROR}")
+    build_dir = os.path.realpath(os.path.join(ROOT, PORT, "_build"))
+    assert os.path.realpath(host_build.BUILD_DIR) == build_dir
+    assert os.path.dirname(os.path.realpath(native.LIB_PATH)) == build_dir
+    assert os.path.basename(native.LIB_PATH).startswith("libtrajlog_")
+    assert host_build.build_shared("trajlog", native.SOURCE, libs=("z",)) == native.LIB_PATH
+    after = {d: sorted(os.listdir(d)) for d in (native_dir, jax_native)}
+    assert after == before and set(after[native_dir]) - {"__pycache__"} == {"__init__.py", "trajlog.cpp"}
+    assert stamps == {f: os.stat(os.path.join(jax_native, f)).st_mtime_ns for f in after[jax_native]}
