@@ -94,7 +94,34 @@ Phases, in order; any failure exits nonzero without printing a result:
      to tactile_render_plain on the inputs it was given, at phase 3's image
      tolerance (its error joins the kernels line's); then the tactile pose
      regressor fitted for 8 epochs on those frames against plug_pos ⊕
-     plug_quat: its loss finite and its last epoch below its first.
+     plug_quat: its loss finite and its last epoch below its first;
+ 11. grasp resets (scripts/gen_grasp.sh at its defaults):
+     `vec_env.make("FactoryTaskGraspTactile", num_envs=256).run(8 rounds)`:
+     exactly 720 solver launches (8 × 30 settling steps × 3 substeps), no
+     renderer launch, the reference's six keys and dtypes; the rows written,
+     removed by the world-Euler filter and kept per subassembly. Then the PPO
+     training CLI (train_s1.sh's hyperparameters) with grasp_dataset= at 8192
+     envs for 1 epoch: exactly 192 solver launches, no renderer launch,
+     finite losses and parameters; a reset from the table starts every env
+     whose subassembly has rows from one of them (arm and hand-base dofs and
+     socket position equal);
+ 12. CycleGAN sim→real: `CycleGANRunner` with the reference's config for 1
+     epoch (cut from 5) on 10b's 1,920 × 3 kernel-rendered gel frames against
+     a stand-in real domain (`stand_in_real`: the repo holds no real frames):
+     losses finite, the cycle loss of the last 50 steps below the first 50's.
+     Its last.ckpt through the DAgger training CLI (9b's run +
+     gan_checkpoint=): 9b's launches, the generator called once in each of
+     the epoch's 64 steps and in none of the eval's 50. Then the hook on the
+     card: one env step at 256 envs with the generator against the same step
+     whose renderer hands out the generator's translation (1e-5), and the
+     generator's time on 768 frames;
+ 13. diffusion policy: `DiffusionRunner` with the reference's config for 1
+     epoch (cut from 10) on phase 10's collection: the loss finite and its
+     last 50 steps below its first 50; `predict` on 256 observations gives
+     [256, 8, 6], finite, in [-1, 1]; the checkpoint loads back.
+Phase 3 prints the random solver set's error beside the worst error relative
+to |plain|, the largest |plain| and the share of SOLVER_TOL it uses: the set
+drives some envs to huge impulses, where the absolute error is large.
 Launch counts are zeroed just before each main path and read just after. The
 line before the last is a JSON object listing every ported kernel with its
 launches summed over the main paths; the last line is {"ok": true, "device": {...}}.
@@ -112,6 +139,8 @@ import sys
 import tempfile
 import time
 import traceback
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "isaacgyminsertion_tpu_torch"
@@ -174,6 +203,20 @@ COLLECT_SCHEMA = {
 }
 ROTATE_FRAMES = 60              # collect_rotating_plug's default n_steps
 ROTATE_ENVS = 32                # scripts/collect_rotate.sh's default
+# scripts/gen_grasp.sh's defaults (generate_grasp_dataset's settle_steps) and the
+# reference's grasp file: key -> dtype
+GRASP_ENVS, GRASP_ROUNDS, GRASP_SETTLE = 256, 8, 30
+GRASP_KEYS = {"sub_idx": "int32", "dof_pos": "float32", "socket_pos": "float32", "socket_quat": "float32",
+              "plug_pos_hand": "float32", "plug_quat_hand": "float32"}
+GAN_EPOCHS = 1                  # CycleGANConfig's 5, cut
+DIFFUSION_EPOCHS = 1            # DiffusionConfig's 10, cut
+
+
+def stand_in_real(frames):
+    """The stand-in "real" domain of the CycleGAN: the kernel-rendered gel
+    frames ([0, 1]) with their channels reversed, then gamma 0.8. The repo
+    holds no real AllSight frames."""
+    return np.power(frames[..., ::-1], 0.8)
 
 
 class PhaseError(RuntimeError):
@@ -199,6 +242,25 @@ def _compare(name, out, ref):
         raise PhaseError(f"{name}: {field} differs at {i}: kernel {a} vs plain {b} "
                          f"({n_bad} of {size} outside rtol {rtol}, atol {atol})")
     return worst
+
+
+def _solver_scale(out, ref):
+    """Why a large absolute solver error passes: → (the worst error relative
+    to |plain| over the elements where |plain| passes their atol, the largest
+    |plain|, the largest share of the tolerance atol + rtol |plain| used)."""
+    from isaacgyminsertion_tpu_torch.utils import capture
+
+    rel, big, share = 0.0, 0.0, 0.0
+    for field, (rtol, atol) in capture.SOLVER_TOL.items():
+        a = getattr(out, field).detach().double().cpu().numpy()
+        b = getattr(ref, field).detach().double().cpu().numpy()
+        err, mag = np.abs(a - b), np.abs(b)
+        on = mag > atol
+        if on.any():
+            rel = max(rel, float((err[on] / mag[on]).max()))
+        big = max(big, float(mag.max()))
+        share = max(share, float((err / (atol + rtol * mag)).max()))
+    return rel, big, share
 
 
 def _compare_images(name, out, ref, ids=()):
@@ -596,6 +658,273 @@ def _tactile_data_path(cli, counts_zero, counts, work):
     return c, max(errs)
 
 
+def _grasp_path(cli, counts_zero, counts, substeps, work):
+    """Phase 11: grasp generation through `vec_env.make("FactoryTaskGraspTactile")`
+    at gen_grasp.sh's defaults, the table's rows, PPO training on it through
+    the CLI, and the resets from it → (the launch counts of the generation,
+    of the training)."""
+    import numpy as np
+    import torch
+
+    from isaacgyminsertion_tpu_torch.envs import grasp_gen, insertion, vec_env
+
+    path = os.path.join(work, "initial_grasp_data.npz")
+    counts_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    task = vec_env.make("FactoryTaskGraspTactile", num_envs=GRASP_ENVS)
+    n = task.run(n_rounds=GRASP_ROUNDS, out_path=path)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c_gen = counts()
+    print(f"main path: grasp generation (gen_grasp.sh: {GRASP_ENVS} envs x {GRASP_ROUNDS} rounds x "
+          f"{GRASP_SETTLE} settling steps, gravity -9.81): {n} rows written of {GRASP_ENVS * GRASP_ROUNDS} "
+          f"envs, {secs:.2f} s incl. resets, peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, "
+          f"launches {c_gen}", flush=True)
+    want = dict(contact_solver=GRASP_ROUNDS * GRASP_SETTLE * substeps, tactile_render=0, camera_render=0)
+    if c_gen != want:
+        raise PhaseError(f"grasp generation launches {c_gen}, expected {want}")
+    with np.load(path) as d:
+        layout = {k: str(d[k].dtype) for k in d.files}
+    if layout != GRASP_KEYS or n == 0:
+        raise PhaseError(f"grasp file {layout} with {n} rows; the reference writes {GRASP_KEYS}")
+    n_sub = len(task.subs.names)
+    kept = int(grasp_gen.load_grasp_data(path, n_sub, max_rows=max(n, 1), model=task.model).count.sum())
+    table = grasp_gen.load_grasp_data(path, n_sub, model=task.model)
+    print(f"grasp table: {n} rows written, {n - kept} removed by the world-Euler filter (> 0.4 rad), "
+          f"{int(table.count.sum())} kept (at most 512 a subassembly); rows by subassembly "
+          f"{dict(zip(task.subs.names, table.count.tolist()))}", flush=True)
+    del task
+    torch.cuda.empty_cache()
+
+    # PPO training on the table through the CLI (train_s1.sh's hyperparameters)
+    out_dir = os.path.join(work, "grasp_ppo")
+    counts_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = cli.main(TRAIN_S1_ARGS + [f"num_envs={TRAIN_ENVS}", "max_epochs=1", "seed=0", f"output={out_dir}",
+                                        "eval_freq_steps=1e12", f"grasp_dataset={path}"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c_train = counts()
+    steps = trainer.ppo_cfg.horizon
+    r = _epoch_rows(out_dir, 1, ("loss", "a_loss", "c_loss", "kl", "info/param_norm"))[0]
+    print(f"main path: teacher training on the grasp table (train_s1.sh, grasp_dataset=), {TRAIN_ENVS} envs "
+          f"x 1 epoch: {secs:.2f} s incl. loading the table and the reset, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches {c_train}; EnvStepFPS "
+          f"{r['performance/EnvStepFPS']:.1f} env-steps/s, loss {r['loss']:.4f}, kl {r['kl']:.5f}, reward "
+          f"{r['episode/reward']:.4f}", flush=True)
+    want = dict(contact_solver=substeps * steps, tactile_render=0, camera_render=0)
+    if c_train != want:
+        raise PhaseError(f"grasp training launches {c_train}, expected {want}")
+    if trainer.train_epoch.grasp_data is None:
+        raise PhaseError("the training env did not get the grasp table")
+    if not all(bool(torch.isfinite(p).all()) for p in trainer.net.parameters()):
+        raise PhaseError("a parameter is not finite after training on the grasp table")
+    cfg, model, subs, dev = trainer.cfg_task, trainer.model, trainer.subs, trainer.device
+    del trainer
+    torch.cuda.empty_cache()
+
+    # every env whose subassembly has rows starts from one of them
+    with torch.no_grad():
+        state = insertion.reset_all(cfg, model, subs, insertion.make_generator(0, dev), TRAIN_ENVS,
+                                    grasp_data=table)
+    cols = [0, 1, 2, 3, 4, 5, 6, 7, 10]   # arm and hand-base joints; the fingers close onto the plug again
+    sub = state.sub_idx
+    rows_q = torch.as_tensor(table.dof_pos, device=dev)[sub][..., cols]            # [N, S, 9]
+    rows_s = torch.as_tensor(table.socket_pos, device=dev)[sub]
+    count = torch.as_tensor(table.count, device=dev)[sub]
+    valid = torch.arange(rows_q.shape[1], device=dev)[None] < count[:, None]
+    hit = ((rows_q == state.phys.q[:, None, cols]).all(-1)
+           & (rows_s == state.params.socket_pos[:, None]).all(-1) & valid).any(-1)
+    has = count > 0
+    if bool((has & ~hit).any()) or not bool(has.any()):
+        raise PhaseError(f"{int((has & ~hit).sum())} of {int(has.sum())} envs with rows did not start from one")
+    print(f"grasp resets: {int(has.sum())} of {TRAIN_ENVS} envs have rows and each starts from one (arm and "
+          f"hand-base dofs and socket position equal to a row's)", flush=True)
+    return c_gen, c_train
+
+
+def _cyclegan_path(cli, counts_zero, counts, substeps, work):
+    """Phase 12: CycleGAN on phase 10b's frames, its generator in DAgger
+    training on the tactile path, and the hook held on the card → the
+    launch counts of the training run."""
+    import numpy as np
+    import torch
+
+    from isaacgyminsertion_tpu_torch.algo.gan_runner import CycleGANConfig, CycleGANRunner
+    from isaacgyminsertion_tpu_torch.envs import insertion
+    from isaacgyminsertion_tpu_torch.models import zoo
+    from isaacgyminsertion_tpu_torch.sensors import tactile as tact_mod
+    from isaacgyminsertion_tpu_torch.utils import capture
+
+    with np.load(f"{work}/tactile_rot_rotate.npz") as d:
+        sim01 = np.asarray(d["tactile"], np.float32).reshape((-1, 64, 64, 3))
+    real01 = stand_in_real(sim01)
+    out_dir = os.path.join(work, "cyclegan")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = CycleGANRunner(CycleGANConfig(epochs=GAN_EPOCHS), out_dir, image_shape=(64, 64, 3))
+    m = runner.fit(sim01 * 2.0 - 1.0, real01 * 2.0 - 1.0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cyc = [s["cycle"] for s in runner.step_metrics]
+    first, last = float(np.mean(cyc[:50])), float(np.mean(cyc[-50:]))
+    print(f"main path: CycleGAN (CycleGANConfig: batch {runner.cfg.batch_size}, lr {runner.cfg.learning_rate}), "
+          f"{GAN_EPOCHS} epoch on {len(sim01)} kernel-rendered gel frames against the stand-in real domain "
+          f"(channels reversed, gamma 0.8): {len(cyc)} steps in {secs:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; last step {m}; cycle loss mean of the first 50 "
+          f"steps {first:.4f}, of the last 50 {last:.4f}", flush=True)
+    if not all(math.isfinite(v) for s in runner.step_metrics for v in s.values()):
+        raise PhaseError("a CycleGAN loss is not finite")
+    if not last < first:
+        raise PhaseError(f"the CycleGAN cycle loss did not fall: {first} -> {last}")
+    ckpt = os.path.join(out_dir, "last")
+    g_ab = runner.G_ab
+    del runner
+    torch.cuda.empty_cache()
+
+    # DAgger training on the tactile path with the generator (phase 9b's run + gan_checkpoint=)
+    calls = dict(gen=0, steps_gan=0, steps_plain=0)
+    forward, step = zoo.ResnetGenerator.forward, insertion.step
+
+    def counting_forward(self, x):
+        calls["gen"] += 1
+        return forward(self, x)
+
+    def counting_step(*args, gan=None, **kw):
+        calls["steps_gan" if gan is not None else "steps_plain"] += 1
+        return step(*args, gan=gan, **kw)
+
+    argv = [a for a in R3_ARGS if a != "test=True"] + [
+        "test=False", f"checkpoint={CHECKPOINT}", f"task.env.numEnvs={STUDENT_ENVS}", "max_epochs=1",
+        "seed=0", "eval_freq_steps=1e12", "eval_envs=64", "task.rl.max_episode_length=50",
+        f"output={out_dir}_student", f"gan_checkpoint={ckpt}"]
+    counts_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    zoo.ResnetGenerator.forward, insertion.step = counting_forward, counting_step
+    try:
+        trainer = cli.main(argv)
+    finally:
+        zoo.ResnetGenerator.forward, insertion.step = forward, step
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = counts()
+    h = trainer.da_cfg.horizon
+    print(f"main path: student training with the CycleGAN generator (phase 9b's run + gan_checkpoint=), "
+          f"{STUDENT_ENVS} envs x 1 epoch + a 50-step eval at 64 envs: {secs:.2f} s incl. reset and eval, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches {c}; generator calls "
+          f"{calls['gen']}, env steps with it {calls['steps_gan']} (the epoch), without it "
+          f"{calls['steps_plain']} (the eval)", flush=True)
+    want = dict(contact_solver=substeps * (h + 50), tactile_render=h + 50, camera_render=h + 50)
+    if c != want:
+        raise PhaseError(f"CycleGAN student training launches {c}, expected {want}")
+    if (calls["gen"], calls["steps_gan"], calls["steps_plain"]) != (h, h, 50):
+        raise PhaseError(f"generator calls {calls}: expected {h} in the epoch's {h} steps and none in the "
+                         f"eval's 50")
+    r = _epoch_rows(f"{out_dir}_student", 1, ("loss", "action_loss", "info/param_norm"))[0]
+    print(f"student training with the generator: EnvStepFPS {r['performance/EnvStepFPS']:.1f} env-steps/s, "
+          f"rollout {r['time/rollout_s']:.2f} s, action_loss {r['action_loss']:.4f}", flush=True)
+    if not all(bool(torch.isfinite(p).all()) for p in trainer.state.net.parameters()):
+        raise PhaseError("a student parameter is not finite after the CycleGAN epoch")
+    cfg, model, subs, dev = trainer.cfg_task, trainer.model, trainer.subs, trainer.device
+    gan = trainer.train_epoch.gan
+    if not all(torch.equal(a, b) for a, b in zip(gan.parameters(), g_ab.parameters())):
+        raise PhaseError("the trainer's generator is not the CycleGAN's g_ab")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the hook on the card: one step with the generator against the same step
+    # whose renderer hands out the generator's translation of its frames
+    gen = insertion.make_generator(0, dev)
+    render = tact_mod.render_tactile
+
+    def translated(*args, **kw):
+        img = render(*args, **kw)
+        return (gan(img.reshape((-1,) + img.shape[2:]) * 2.0 - 1.0).reshape(img.shape) + 1.0) * 0.5
+
+    with torch.no_grad():
+        state = insertion.reset_all(cfg, model, subs, gen, STUDENT_ENVS)
+        act = torch.zeros((STUDENT_ENVS, 6), device=dev)
+        for _ in range(3):
+            state, _ = insertion.step(cfg, model, subs, state, act, gen)
+        gen_b = insertion.make_generator(0, dev)
+        gen_b.set_state(gen.get_state())
+        s_hook, _ = insertion.step(cfg, model, subs, state, act, gen, gan=gan)
+        tact_mod.render_tactile = translated
+        try:
+            s_ref, _ = insertion.step(cfg, model, subs, state, act, gen_b)
+        finally:
+            tact_mod.render_tactile = render
+        err = float((s_hook.tactile_queue.float() - s_ref.tactile_queue.float()).abs().max())
+        fresh = int((s_hook.tactile_queue[:, 0] != state.tactile_queue[:, 0]).flatten(1).any(1).sum())
+        frames = torch.rand((3 * STUDENT_ENVS, 64, 64, 3), generator=gen, device=dev) * 2.0 - 1.0
+        g_times = capture.cuda_times_ms(lambda: gan(frames), reps=10)
+    print(f"CycleGAN hook on the card, {STUDENT_ENVS} envs: tactile queue max abs err {err:.3e} against the "
+          f"generator applied to the same step's frames ({fresh} envs took a fresh frame); the generator on "
+          f"{3 * STUDENT_ENVS} frames {statistics.median(g_times):.3f} ms a control step "
+          f"({capture.spread(g_times)})", flush=True)
+    if not err <= 1e-5 or fresh == 0:
+        raise PhaseError(f"the hook's frames differ from the generator's by {err} ({fresh} fresh)")
+    return c
+
+
+def _diffusion_path(work):
+    """Phase 13: the diffusion policy trained on phase 10's collection, its
+    prediction, its checkpoint loaded back."""
+    import numpy as np
+    import torch
+
+    from isaacgyminsertion_tpu_torch.algo.diffusion_runner import DiffusionConfig, DiffusionRunner
+    from isaacgyminsertion_tpu_torch.models.zoo import to_jax_params
+    from isaacgyminsertion_tpu_torch.utils.checkpoint import restore_path
+
+    out_dir = os.path.join(work, "diffusion")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = DiffusionRunner(DiffusionConfig(epochs=DIFFUSION_EPOCHS), os.path.join(work, "traj"), out_dir)
+    t_load = time.perf_counter() - t0
+    m = runner.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses = runner.losses
+    first, last = float(np.mean(losses[:50])), float(np.mean(losses[-50:]))
+    print(f"main path: diffusion policy (DiffusionConfig: chunk {runner.cfg.chunk}, batch "
+          f"{runner.cfg.batch_size}, lr {runner.cfg.learning_rate}, {runner.cfg.num_diffusion_steps} steps), "
+          f"{DIFFUSION_EPOCHS} epoch on phase 10's {len(runner.dataset.files)} trajectories ({len(runner.dataset)} "
+          f"chunks): {len(losses)} AdamW steps in {secs:.2f} s ({t_load:.2f} s reading the data), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; loss mean of the first 50 steps {first:.5f}, of "
+          f"the last 50 {last:.5f} ({m})", flush=True)
+    if not (all(math.isfinite(x) for x in losses) and last < first):
+        raise PhaseError(f"the diffusion loss did not fall or is not finite: {first} -> {last}")
+    batch = next(runner.dataset.batches(256, np.random.default_rng(1)))
+    obs = batch["student_obs"][:, 0]
+    t0 = time.perf_counter()
+    pred = runner.predict(obs)
+    torch.cuda.synchronize()
+    print(f"diffusion predict: {tuple(pred.shape)} in {(time.perf_counter() - t0) * 1e3:.1f} ms (8 DDIM steps "
+          f"from the EMA weights), range [{float(pred.min()):.4f}, {float(pred.max()):.4f}]", flush=True)
+    if tuple(pred.shape) != (256, runner.cfg.chunk, 6) or not bool(torch.isfinite(pred).all()) \
+            or float(pred.abs().max()) > 1.0:
+        raise PhaseError(f"predict gave {tuple(pred.shape)}, finite {bool(torch.isfinite(pred).all())}, "
+                         f"max |a| {float(pred.abs().max())}")
+    saved = runner.checkpoint_tree()
+    tree = restore_path(os.path.join(out_dir, "last"))
+    with torch.no_grad():
+        for p in list(runner.net.parameters()) + list(runner.ema.parameters()):
+            p.zero_()
+    runner.restore(os.path.join(out_dir, "last"))
+    back = {"params": to_jax_params(runner.net), "ema_params": to_jax_params(runner.ema)}
+    same = lambda a, b: all(same(a[k], b[k]) for k in a) if isinstance(a, dict) else np.array_equal(a, b)
+    if not (same(saved, tree) and same(back, tree)):
+        raise PhaseError("the diffusion checkpoint did not load back")
+    print("diffusion checkpoint: {params, ema_params} in the flax layout, loads back", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -660,7 +989,8 @@ def main():
         return out, _compare(name, out, sk.solve_contacts_fused_plain(*args, H))
 
     rand_args = random_args(N_ENVS, 255, 0)
-    _, err_rand = solver_vs_plain("random contacts", rand_args)
+    out_rand, err_rand = solver_vs_plain("random contacts", rand_args)
+    rel_rand, big_rand, share_rand = _solver_scale(out_rand, sk.solve_contacts_fused_plain(*rand_args, H))
 
     cfg = default_task_config()
     model, subs = build_kuka_openhand(), build_subassembly_set()
@@ -668,8 +998,10 @@ def main():
     _, err_real = solver_vs_plain("env contacts", real_args)
     k_env = capture.active_counts(real_args[4]).float()
     print(f"kernel vs plain: contact_solver N={N_ENVS} C={real_args[4].depth.shape[1]}: "
-          f"random max_abs_err {err_rand:.3e}, env substep max_abs_err {err_real:.3e} "
-          f"({int(k_env.sum())} of {real_args[4].depth.numel()} contacts active)", flush=True)
+          f"random max_abs_err {err_rand:.3e} (worst error relative to |plain| {rel_rand:.3e}, largest "
+          f"|plain| {big_rand:.3e}: at most {share_rand:.3f} of SOLVER_TOL's atol + rtol |plain|), env "
+          f"substep max_abs_err {err_real:.3e} ({int(k_env.sum())} of {real_args[4].depth.numel()} contacts "
+          f"active)", flush=True)
     # the training paths' grids: phase 8 runs the solver at TRAIN_ENVS envs, phase 9 at
     # STUDENT_ENVS envs on train_s2.sh's task (sensors on, random initial grasps)
     train_args = capture.substep_problem(cfg, model, subs, TRAIN_ENVS, H, dev)
@@ -929,6 +1261,26 @@ def main():
                                                                       cfg.sim.substeps, work)
         torch.cuda.empty_cache()
         results["rotating plug"], err_rotate = _tactile_data_path(cli, counts_zero, counts, work)
+
+        # ------------------------------------------------ 11. grasp resets
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        results["grasp generation"], results["grasp training"] = _grasp_path(cli, counts_zero, counts,
+                                                                             cfg.sim.substeps, work)
+        print(f"phase 11: {time.perf_counter() - t0:.2f} s", flush=True)
+
+        # --------------------------------- 12. CycleGAN sim→real, tactile path
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        results["student training, CycleGAN"] = _cyclegan_path(cli, counts_zero, counts, cfg.sim.substeps,
+                                                               work)
+        print(f"phase 12: {time.perf_counter() - t0:.2f} s", flush=True)
+
+        # ----------------------------------------------- 13. diffusion policy
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _diffusion_path(work)
+        print(f"phase 13: {time.perf_counter() - t0:.2f} s", flush=True)
     for r in kernel_rows:
         if r["name"] == "tactile_render":
             r["max_abs_err"] = max(r["max_abs_err"], err_rotate)

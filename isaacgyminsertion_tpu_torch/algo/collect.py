@@ -79,7 +79,7 @@ def collect_teacher_rollouts(
         for _ in range(chunk):
             obs = env_state.obs_queue
             priv = insertion.priv_info_of(cfg_task, model, env_state)
-            mu, log_std, _, latent = net(rms_normalize(obs_rms, obs), rms_normalize(priv_rms, priv))
+            mu, log_std, _, latent, _ = net(rms_normalize(obs_rms, obs), rms_normalize(priv_rms, priv))
             if deterministic:
                 act = mu
             else:

@@ -208,12 +208,13 @@ def _make_student(cfg_task: TaskConfig, da_cfg: DAggerConfig) -> MultiModalModel
 
 
 def build(cfg_task: TaskConfig, da_cfg: DAggerConfig, model, subs, n_envs: int,
-          teacher: TeacherBundle, seed: int, phase3: bool = False, device=None):
+          teacher: TeacherBundle, seed: int, phase3: bool = False, device=None, gan=None):
     """A fresh student (flax's default init), its optimizer, the initial
     DAggerState and the epoch → (state, train_epoch). With `phase3` only the
     decoder and the latent head train: the other parameters get no gradient
     and no optimizer state, and the gradient clip covers the trainable ones
-    only (the reference's `optax.multi_transform`)."""
+    only (the reference's `optax.multi_transform`). `gan`, a CycleGAN
+    `ResnetGenerator`, translates the rollout's tactile frames sim → real."""
     if da_cfg.replay_mode not in REPLAY_MODES:
         raise ValueError(f"replay_mode {da_cfg.replay_mode!r} is not one of {REPLAY_MODES}")
     dev = resolve_device(device)
@@ -228,7 +229,7 @@ def build(cfg_task: TaskConfig, da_cfg: DAggerConfig, model, subs, n_envs: int,
         stud_obs_rms=rms_init((e.num_obs_hist * e.num_observations,), dev),
         pcl_rms=rms_init((3,), dev), env_state=env_state, env_gen=env_gen,
         train_gen=insertion.make_generator(int(seed) + 2, dev), epoch=0, agent_steps=0)
-    return state, TrainEpoch(cfg_task, da_cfg, model, subs, teacher)
+    return state, TrainEpoch(cfg_task, da_cfg, model, subs, teacher, gan=gan)
 
 
 def student_optimizer(net: MultiModalModel, da_cfg: DAggerConfig, phase3: bool = False):
@@ -352,9 +353,11 @@ class TrainEpoch:
     `update`) are methods so that a profiler can take them apart; `timer`
     sums their host seconds, each phase closed by a device synchronize."""
 
-    def __init__(self, cfg_task: TaskConfig, da_cfg: DAggerConfig, model, subs, teacher: TeacherBundle):
+    def __init__(self, cfg_task: TaskConfig, da_cfg: DAggerConfig, model, subs, teacher: TeacherBundle,
+                 gan=None):
         self.cfg_task, self.da_cfg, self.model, self.subs = cfg_task, da_cfg, model, subs
         self.teacher = teacher
+        self.gan = gan   # the CycleGAN generator on the rollout's tactile frames, or None
         self.student_act = make_student_act(cfg_task, da_cfg, teacher)
         self.reservoir = Reservoir(da_cfg.replay_size, da_cfg.replay_stratify, da_cfg.replay_freeze_beta,
                                    da_cfg.beta_anneal_steps) if da_cfg.replay_size > 0 else None
@@ -369,7 +372,7 @@ class TrainEpoch:
     @torch.no_grad()
     def teacher_act(self, obs, priv):
         t = self.teacher
-        mu, _, _, latent_gt = t.net(rms_normalize(t.obs_rms, obs), rms_normalize(t.priv_rms, priv))
+        mu, _, _, latent_gt, _ = t.net(rms_normalize(t.obs_rms, obs), rms_normalize(t.priv_rms, priv))
         return torch.clamp(mu, -1.0, 1.0), latent_gt
 
     @torch.no_grad()
@@ -394,7 +397,7 @@ class TrainEpoch:
         if c.use_priv:
             sample["priv"] = priv
         env_state, out = insertion.step(self.cfg_task, self.model, self.subs, env_state, mixed,
-                                        state.env_gen)
+                                        state.env_gen, gan=self.gan)
         return env_state, sample, torch.stack([out.rew.mean(), out.extras["successes"].mean()]), beta
 
     def rollout(self, state: DAggerState, mix=None):

@@ -155,9 +155,11 @@ def _is_critic(name: str) -> bool:
 
 
 def build(cfg_task: TaskConfig, ppo_cfg: PPOConfig, model, subs, n_envs: int, seed: int,
-          device=None):
+          device=None, grasp_data=None):
     """Network (flax's default init), optimizer, the initial PPOState and the
-    epoch → (net, optimizer, state, train_epoch)."""
+    epoch → (net, optimizer, state, train_epoch). `grasp_data`
+    (`envs.grasp_gen.GraspData`) makes the training env's resets replay a
+    grasp-dataset table."""
     dev = resolve_device(device)
     obs_dim = cfg_task.env.num_obs_hist * cfg_task.env.num_observations
     net = ActorCriticSplit(num_actions=cfg_task.env.num_actions, obs_dim=obs_dim,
@@ -166,7 +168,7 @@ def build(cfg_task: TaskConfig, ppo_cfg: PPOConfig, model, subs, n_envs: int, se
     net = net.to(dev)
     env_gen = insertion.make_generator(seed, dev)
     with torch.no_grad():
-        env_state = insertion.reset_all(cfg_task, model, subs, env_gen, n_envs)
+        env_state = insertion.reset_all(cfg_task, model, subs, env_gen, n_envs, grasp_data=grasp_data)
     optimizer = make_optimizer(net.parameters(), ppo_cfg.learning_rate)
     state = PPOState(
         net=net, optimizer=optimizer,
@@ -174,7 +176,7 @@ def build(cfg_task: TaskConfig, ppo_cfg: PPOConfig, model, subs, n_envs: int, se
         value_rms=rms_init((), dev), env_state=env_state, env_gen=env_gen,
         train_gen=insertion.make_generator(int(seed) + 2, dev), epoch=0, agent_steps=0,
         anchor=frozen_copy(net) if ppo_cfg.anchor_coef > 0 else None)
-    return net, optimizer, state, TrainEpoch(cfg_task, ppo_cfg, model, subs)
+    return net, optimizer, state, TrainEpoch(cfg_task, ppo_cfg, model, subs, grasp_data=grasp_data)
 
 
 def frozen_copy(net: torch.nn.Module) -> torch.nn.Module:
@@ -210,8 +212,9 @@ class TrainEpoch:
     that a profiler can take them apart; `timer` sums their host seconds,
     each phase closed by a device synchronize."""
 
-    def __init__(self, cfg_task: TaskConfig, ppo_cfg: PPOConfig, model, subs):
+    def __init__(self, cfg_task: TaskConfig, ppo_cfg: PPOConfig, model, subs, grasp_data=None):
         self.cfg_task, self.ppo_cfg, self.model, self.subs = cfg_task, ppo_cfg, model, subs
+        self.grasp_data = grasp_data
         self.timer = Timer()
 
     def _unnorm_value(self, value_rms, v):
@@ -226,12 +229,13 @@ class TrainEpoch:
         obs = env_state.obs_queue
         succ_pre = env_state.success_reset_buf.float()
         priv = insertion.priv_info_of(self.cfg_task, self.model, env_state)
-        mu, log_std, value_n, _ = net(rms_normalize(state.obs_rms, obs),
-                                      rms_normalize(state.priv_rms, priv))
+        mu, log_std, value_n, _, _ = net(rms_normalize(state.obs_rms, obs),
+                                         rms_normalize(state.priv_rms, priv))
         actions, neglogp = sample_actions(mu, log_std, state.train_gen, noise=eps)
         value = self._unnorm_value(state.value_rms, value_n)
         env_state, out = insertion.step(self.cfg_task, self.model, self.subs, env_state,
-                                        torch.clamp(actions, -1.0, 1.0), state.env_gen)
+                                        torch.clamp(actions, -1.0, 1.0), state.env_gen,
+                                        grasp_data=self.grasp_data)
         if c.value_bootstrap:
             boot = out.timeout.to(out.rew.dtype)
             if c.bootstrap_mask_success:
@@ -327,7 +331,7 @@ class TrainEpoch:
         c = self.ppo_cfg
         o = rms_normalize(obs_rms, mb["obs"])
         p = rms_normalize(priv_rms, mb["priv"])
-        mu, log_std, value, _ = state.net(o, p)
+        mu, log_std, value, _, _ = state.net(o, p)
         neglogp = gaussian_neglogp(mb["actions"], mu, log_std)
         ratio = torch.exp(mb["neglogp"] - neglogp)
         surr1 = mb["advs"] * ratio
@@ -353,7 +357,7 @@ class TrainEpoch:
                "diag/entropy": entropy, "diag/clip_frac": clip_frac}
         if c.anchor_coef > 0:
             with torch.no_grad():
-                mu_a, log_std_a, _, _ = state.anchor(o, p)
+                mu_a, log_std_a, _, _, _ = state.anchor(o, p)
             kl_anchor = policy_kl(mu, sigma, mu_a, torch.exp(log_std_a) * torch.ones_like(mu_a))
             loss = loss + c.anchor_coef * kl_anchor
             aux["kl_anchor"] = kl_anchor

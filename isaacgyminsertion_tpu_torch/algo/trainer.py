@@ -27,6 +27,7 @@ from ..envs import insertion
 from ..models.actor_critic import actor_critic_from_jax_params, convert_jax_params, to_jax_params
 from ..models.running_mean_std import rms_normalize, rms_to, rms_to_numpy
 from ..models.student import convert_flax_params, student_from_jax_params, student_to_jax_params
+from ..models.zoo import generator_from_jax_params
 from ..utils.checkpoint import Checkpointer, restore_path
 from ..utils.metrics import AverageScalarMeter, MetricsWriter
 from . import ext_adapt as ea
@@ -94,12 +95,15 @@ class PPOTrainer:
     anneal ladder (`PPOConfig.anneal_ladder`)."""
 
     def __init__(self, cfg_task, ppo_cfg, model, subs, n_envs, out_dir, seed: int = 0,
-                 eval_envs: int | None = None, eval_freq_steps: float = 10.0e6, device=None):
+                 eval_envs: int | None = None, eval_freq_steps: float = 10.0e6, device=None,
+                 grasp_data=None):
         self.device = resolve_device(device)
         self.cfg_task, self.ppo_cfg = cfg_task, ppo_cfg
         self.model, self.subs, self.n_envs = model, subs, n_envs
+        # grasp-dataset resets drive the training env only: the evals reset
+        # analytically, as the reference's do
         self.net, _, self.state, self.train_epoch = ppo_mod.build(
-            cfg_task, ppo_cfg, model, subs, n_envs, seed, device=self.device)
+            cfg_task, ppo_cfg, model, subs, n_envs, seed, device=self.device, grasp_data=grasp_data)
         self.ckpt = Checkpointer(out_dir)
         self.writer = MetricsWriter(out_dir)
         self.episode_rewards = AverageScalarMeter()
@@ -350,23 +354,27 @@ class DAggerTrainer:
     and once at the end).
 
     Checkpoints hold `{"student_params", "stud_obs_rms", "pcl_rms"}` in the
-    reference's layout, so `StudentEvaluator` and the reference load them."""
+    reference's layout, so `StudentEvaluator` and the reference load them.
+    `gan_ckpt_path`, a CycleGAN checkpoint of either package, puts its
+    sim → real generator on the training rollout's tactile frames."""
 
     def __init__(self, cfg_task, da_cfg, model, subs, n_envs, out_dir, teacher_ckpt_path: str,
                  seed: int = 0, phase3: bool = False, student_ckpt_path: str = "",
                  gan_ckpt_path: str = "", eval_envs: int | None = None,
                  eval_freq_steps: float = 2.0e6, device=None):
-        if gan_ckpt_path:
-            raise SystemExit("gan_ckpt_path: the CycleGAN sim→real generator of the tactile frames "
-                             "(algo/gan_runner.py) is not ported yet")
         self.device = resolve_device(device)
         self.cfg_task, self.da_cfg, self.model, self.subs, self.n_envs = cfg_task, da_cfg, model, subs, n_envs
         tree = restore_path(teacher_ckpt_path)
         self.teacher = ea.TeacherBundle(
             net=actor_critic_from_jax_params(tree["params"], self.device).requires_grad_(False),
             obs_rms=rms_to(tree["obs_rms"], self.device), priv_rms=rms_to(tree["priv_rms"], self.device))
+        # tactile sim→real: the training rollout's rendered frames pass through
+        # the CycleGAN generator `g_ab`; the student evals render without it,
+        # as the reference's do
+        gan = (generator_from_jax_params(restore_path(gan_ckpt_path)["params"]["g_ab"], self.device)
+               if gan_ckpt_path else None)
         self.state, self.train_epoch = ea.build(cfg_task, da_cfg, model, subs, n_envs, self.teacher, seed,
-                                                phase3=phase3, device=self.device)
+                                                phase3=phase3, device=self.device, gan=gan)
         if student_ckpt_path:
             # phase-2/3 restore: continue from a previous student
             stree = restore_path(student_ckpt_path)

@@ -42,9 +42,11 @@ envs), writing `last.ckpt`, `best_success.ckpt`, `config.json` and
 
 spins each env's grasped plug in hand for 60 frames and writes their tactile
 images and plug poses to `{output}_rotate.npz` (scripts/collect_rotate.sh).
-Everything runs on CUDA unless `device=cpu` is given. The grasp-dataset
-resets (`grasp_dataset=`) and the CycleGAN tactile generator
-(`gan_checkpoint=`) are not ported yet.
+`grasp_dataset=<npz>` makes PPO training reset from a grasp dataset
+(`envs/grasp_gen.py`; unless `task.grasp_at_init=True`), and
+`gan_checkpoint=<ckpt>` (or `task.tactile.model_G=`) puts a CycleGAN
+generator (`algo/gan_runner.py`) on the tactile frames of DAgger training's
+rollout. Everything runs on CUDA unless `device=cpu` is given.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ import dataclasses
 import sys
 from typing import Any
 
+from . import resolve_device
 from .algo.ext_adapt import DAggerConfig
 from .algo.ppo import PPOConfig
 from .envs.config import default_task_config
@@ -286,13 +289,6 @@ def main(argv: list[str] | None = None):
     args = parse_args(argv)
     if args["algo"] not in ("PPO", "ExtrinsicAdapt"):
         raise SystemExit(f"unknown algo {args['algo']!r}")
-    if args["grasp_dataset"]:
-        raise SystemExit("grasp_dataset= is not ported yet: the grasp-dataset resets wait for "
-                         "envs/grasp_gen.py")
-    if args["gan_checkpoint"]:
-        raise SystemExit("gan_checkpoint= is not ported yet: the CycleGAN sim→real generator of the "
-                         "tactile frames waits for algo/gan_runner.py")
-
     from .algo.trainer import DAggerTrainer, PPOTrainer, StudentEvaluator, TeacherEvaluator
     from .assets import build_subassembly_set
     from .physics.robot import build_kuka_openhand
@@ -306,10 +302,17 @@ def main(argv: list[str] | None = None):
         print(f"collected {n} rotating-plug tactile frames")
         return n
     if args["algo"] == "PPO" and not args["test"]:
+        device = resolve_device(args["device"])
+        grasp_data = None
+        if args["grasp_dataset"] and not args["task"].grasp_at_init:
+            # grasp_at_init=True builds the grasp at reset and ignores the dataset
+            from .envs.grasp_gen import load_grasp_data
+
+            grasp_data = load_grasp_data(args["grasp_dataset"], n_sub=len(subs.names), model=model)
         trainer = PPOTrainer(args["task"], args["ppo"], model, subs, args["num_envs"], args["output"],
                              seed=42 if args["seed"] is None else args["seed"],
                              eval_envs=args["eval_envs"], eval_freq_steps=args["eval_freq_steps"],
-                             device=args["device"])
+                             device=device, grasp_data=grasp_data)
         if args["checkpoint"]:
             trainer.restore(args["checkpoint"])
         trainer.train(max_epochs=args["max_epochs"])
@@ -321,6 +324,7 @@ def main(argv: list[str] | None = None):
                                 teacher_ckpt_path=args["checkpoint"],
                                 seed=42 if args["seed"] is None else args["seed"], phase3=args["phase3"],
                                 student_ckpt_path=args["student_checkpoint"],
+                                gan_ckpt_path=args["gan_checkpoint"],
                                 eval_envs=args["eval_envs"], eval_freq_steps=args["eval_freq_steps"],
                                 device=args["device"])
         trainer.train(max_epochs=args["max_epochs"] or 1000)

@@ -2,7 +2,8 @@
 
 Port of `isaacgyminsertion_tpu/envs/insertion.py`:
 
-    state', out = step(cfg, model, subs, state, policy_actions, generator)
+    state', out = step(cfg, model, subs, state, policy_actions, generator,
+                       grasp_data=None, gan=None)
 
 Masked resets, the action latency queue, observation staleness, domain
 randomization, rewards and success/failure detection are fixed-shape tensor
@@ -13,7 +14,11 @@ reference's `lax.cond(any(reset_buf))` is a host `if`.
 Resets sample the predefined-grasp distribution analytically: socket pose
 with noise, the arm placed by IK so the fingertip frame sits over the plug,
 the plug hanging in the grasp with pose noise, and the hand closed onto it by
-a per-finger bisection on the predicted gel force.
+a per-finger bisection on the predicted gel force. With `grasp_data` (a
+`grasp_gen.GraspData` table) a row drawn per env replaces the dofs and the
+socket pose, and the plug rides the row's hand-relative pose; the row's draw
+is one extra uniform, taken only when a table is given, so the draws without
+one are those of the analytic resets.
 
 The sensor modalities (tactile images, external depth/seg camera, point
 clouds, contact ground truth) are rendered after the physics, decimated and
@@ -21,8 +26,10 @@ delayed per env, and kept in FIFO queues. The image queues are stored in
 float16 (pure [0, 1]-ranged frame storage; the ~1e-3 quantization sits far
 below the 0.01 pixel noise) and handed out as float32. With
 `env.render_capacity < 1` only the env rows that consume a fresh frame this
-step are rendered (`_render_sel`). The CycleGAN sim→real hook on tactile
-frames (`gan_params`) is not ported yet.
+step are rendered (`_render_sel`). `gan`, a `models.zoo.ResnetGenerator`,
+translates the rendered tactile frames sim → real before they enter the queue
+(the CycleGAN hook: frames × 2 − 1 → generator → (out + 1) / 2), on the
+gathered rows where only those are rendered.
 """
 
 from __future__ import annotations
@@ -206,7 +213,7 @@ def _z_offset(z):
 
 def _sample_episode(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet,
                     gen: torch.Generator, n: int, sub_idx: torch.Tensor,
-                    base_params: PhysicsParams, global_step: int = 0):
+                    base_params: PhysicsParams, global_step: int = 0, grasp_data=None):
     """Sample fresh episode state for ALL envs (callers mask into the batch)."""
     dev = sub_idx.device
     rz = cfg.randomize
@@ -243,6 +250,17 @@ def _sample_episode(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet,
         dq = ctrlmod._get_delta_dof_pos(torch.cat([ftc_target - ft, zeros3], dim=-1), J, "dls")
         q = torch.cat([q[:, :7] + torch.clamp(dq, -0.2, 0.2), q[:, 7:]], dim=-1)
 
+    # ---- grasp-dataset override: a sampled row replaces the IK pose and the
+    # socket pose for envs whose subassembly has rows
+    if grasp_data is not None:
+        gd = lambda a: const(a, dev)[sub_idx, row]
+        counts = const(grasp_data.count, dev, torch.long)[sub_idx]
+        row = (torch.rand((n,), generator=gen, device=dev) * torch.clamp_min(counts, 1)).long()
+        has = counts > 0
+        q = _where(has, gd(grasp_data.dof_pos), q)
+        socket_pos = _where(has, gd(grasp_data.socket_pos), socket_pos)
+        socket_quat = _where(has, gd(grasp_data.socket_quat), socket_quat)
+
     # ---- plug pose: grasped below the fingertip-centered frame
     fk = forward_kinematics(model, q)
     ftc_q, ftc_t = site_pose(model, fk, SITE_FINGERTIP_CENTERED)
@@ -251,6 +269,12 @@ def _sample_episode(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet,
                                                       plug_eul[..., 2]))
     grasp_off = _sym_noise(gen, (n, 3), (rz.grasp_plug_noise,) * 3, dev)
     plug_pos = ftc_t + grasp_off - rot.quat_apply(plug_quat, _z_offset(rows["plug_length"] * 0.8))
+    if grasp_data is not None:
+        # the plug rides the row's plug-in-hand pose
+        pq_gd, pp_gd = rot.tf_combine(ftc_q, ftc_t, gd(grasp_data.plug_quat_hand),
+                                      gd(grasp_data.plug_pos_hand))
+        plug_pos = _where(has, pp_gd, plug_pos)
+        plug_quat = _where(has, pq_gd, plug_quat)
 
     # ---- close the hand ONTO the plug: per-finger bisection of the closure
     # fraction until each pad's predicted gel force (the patch spring model
@@ -371,13 +395,15 @@ def _sensor_queues(cfg: TaskConfig, subs: SubassemblySet, n: int, dev) -> dict:
 
 
 def reset_all(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, generator: torch.Generator,
-              n: int) -> EnvState:
-    """A fresh EnvState for the full batch, on the generator's device."""
+              n: int, grasp_data=None) -> EnvState:
+    """A fresh EnvState for the full batch, on the generator's device
+    (`grasp_data`: resets from a grasp-dataset table)."""
     gen = generator
     dev = gen.device
     sub_idx = torch.randint(0, len(subs.names), (n,), generator=gen, device=dev)
     base_params = engine.make_params(subs, sub_idx, n)
-    phys, params, aux = _sample_episode(cfg, model, subs, gen, n, sub_idx, base_params)
+    phys, params, aux = _sample_episode(cfg, model, subs, gen, n, sub_idx, base_params,
+                                        grasp_data=grasp_data)
 
     e = cfg.env
     fk = forward_kinematics(model, phys.q)
@@ -433,7 +459,7 @@ def reset_all(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, generato
 
 
 def _reset_idx(cfg, model, subs, state: EnvState, mask: torch.Tensor,
-               gen: torch.Generator) -> EnvState:
+               gen: torch.Generator, grasp_data=None) -> EnvState:
     """Masked re-init of done envs."""
     n = mask.shape[0]
     dev = mask.device
@@ -441,7 +467,7 @@ def _reset_idx(cfg, model, subs, state: EnvState, mask: torch.Tensor,
         0, len(subs.names), (n,), generator=gen, device=dev)
     sub_idx = torch.where(mask, new_sub, state.sub_idx)
     phys_new, params_new, aux = _sample_episode(cfg, model, subs, gen, n, sub_idx, state.params,
-                                                global_step=state.global_step)
+                                                global_step=state.global_step, grasp_data=grasp_data)
     phys = _masked_tree(mask, phys_new, state.phys)
     params = _masked_tree(mask, params_new, state.params)
 
@@ -562,10 +588,10 @@ def priv_info_of(cfg: TaskConfig, model: RobotModel, state: EnvState) -> torch.T
 
 
 def step(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, state: EnvState,
-         policy_actions: torch.Tensor, generator: torch.Generator, gan_params=None):
-    """One control step of the full env batch → (state', StepOutput)."""
-    if gan_params is not None:
-        raise NotImplementedError("the CycleGAN sim→real hook on tactile frames is not ported yet")
+         policy_actions: torch.Tensor, generator: torch.Generator, grasp_data=None, gan=None):
+    """One control step of the full env batch → (state', StepOutput).
+    `grasp_data` makes the resets replay a grasp-dataset table; `gan`, a
+    `ResnetGenerator`, translates the rendered tactile frames sim → real."""
     gen = generator
     n = policy_actions.shape[0]
     dev = policy_actions.device
@@ -574,7 +600,7 @@ def step(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, state: EnvSta
 
     # ---------------- pre-physics: reset done envs (rare: skipped on the host)
     if bool(state.reset_buf.any()):
-        state = _reset_idx(cfg, model, subs, state, state.reset_buf, gen)
+        state = _reset_idx(cfg, model, subs, state, state.reset_buf, gen, grasp_data=grasp_data)
     gs = state.global_step
 
     # action DR noise (white + correlated, held per randomization window)
@@ -681,7 +707,7 @@ def step(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, state: EnvSta
 
     # ---------------- sensor modalities (decimation + delay)
     queues, render_overflow = _sensor_step(cfg, model, subs, state, phys, fk2, ftc_t2, frame,
-                                           progress, finger_forces_ema, gen)
+                                           progress, finger_forces_ema, gen, gan)
 
     # ---------------- observation staleness (decimation + delay)
     refresh = ((frame + state.plug_pose_refresh_offset) % state.plug_pose_refresh_rate) == 0
@@ -778,7 +804,7 @@ def _push(latest, queue):
 
 
 def _sensor_step(cfg, model, subs, state: EnvState, phys: PhysicsState, fk2, ftc_t2, frame,
-                 progress, finger_forces_ema, gen):
+                 progress, finger_forces_ema, gen, gan=None):
     """Render the sensor modalities that are on and push them into their
     queues → (the five queues, dropped consumers this step [scalar]).
 
@@ -831,6 +857,10 @@ def _sensor_step(cfg, model, subs, state: EnvState, phys: PhysicsState, fk2, ftc
             tact_mod.TactileConfig(), gt(tip_q3), gt(tip_t3), gt(phys.plug_quat), gt(phys.plug_pos),
             gt(params.kind_onehot), gt(params.plug_hx * psc), gt(params.plug_hy * psc),
             gt(params.plug_length * psc), gt(finger_forces_ema), generator=gen, noise_std=0.01)
+        if gan is not None:
+            # CycleGAN sim→real on the rendered frames; the generator is tanh-ranged
+            out_g = gan(timg.reshape((-1,) + timg.shape[2:]) * 2.0 - 1.0)
+            timg = (out_g.reshape(timg.shape) + 1.0) * 0.5
         tq = state.tactile_queue
         queues["tactile_queue"] = _push(latest_of(sel_t, t_upd, timg.to(tq.dtype), tq[:, 0]), tq)
     if e.external_cam:

@@ -3,9 +3,9 @@
 Port of `isaacgyminsertion_tpu/envs/vec_env.py`: the object API of the
 reference's VecTask (`reset()` / `step(actions)` → (obs_dict, rew, reset,
 extras), obs_dict keys obs/priv_info/student_obs/tactile/img/seg/pcl/contacts)
-over the functional env. The in-repo trainers call the functional step
-directly. The grasp-generation and sys-id tasks wait for their modules
-(`envs/grasp_gen.py`, `sysid.py`); `make` refuses them.
+over the functional env, and the grasp-generation task. The in-repo trainers
+call the functional step directly. The sys-id task waits for its module
+(`sysid.py`); `make` refuses it.
 """
 
 from __future__ import annotations
@@ -21,18 +21,21 @@ from .config import TaskConfig, default_task_config
 
 class InsertionVecEnv:
     """The insertion task's object API (one batch of envs per instance), on
-    CUDA unless `device="cpu"` is given."""
+    CUDA unless `device="cpu"` is given; `grasp_data` makes its resets replay
+    a grasp-dataset table."""
 
     def __init__(self, cfg: TaskConfig | None = None, num_envs: int = 128, seed: int = 0,
-                 device=None):
+                 device=None, grasp_data=None):
         self.cfg = cfg or default_task_config()
         self.num_envs = num_envs
         self.device = resolve_device(device)
         self.model = build_kuka_openhand()
         self.subs = build_subassembly_set()
+        self.grasp_data = grasp_data
         self.generator = insertion.make_generator(seed, self.device)
         with torch.no_grad():
-            self.state = insertion.reset_all(self.cfg, self.model, self.subs, self.generator, num_envs)
+            self.state = insertion.reset_all(self.cfg, self.model, self.subs, self.generator, num_envs,
+                                             grasp_data=grasp_data)
 
     @property
     def num_observations(self) -> int:
@@ -49,7 +52,7 @@ class InsertionVecEnv:
     def reset(self) -> dict:
         with torch.no_grad():
             self.state = insertion.reset_all(self.cfg, self.model, self.subs, self.generator,
-                                             self.num_envs)
+                                             self.num_envs, grasp_data=self.grasp_data)
             priv = insertion.priv_info_of(self.cfg, self.model, self.state)
         s = self.state
         return {"obs": s.obs_queue, "priv_info": priv, "student_obs": s.obs_stud_queue,
@@ -60,7 +63,7 @@ class InsertionVecEnv:
         actions = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
         with torch.no_grad():
             self.state, out = insertion.step(self.cfg, self.model, self.subs, self.state, actions,
-                                             self.generator)
+                                             self.generator, grasp_data=self.grasp_data)
         obs_dict = {"obs": out.obs, "priv_info": out.priv_info, "student_obs": out.student_obs,
                     "tactile": out.tactile, "img": out.img, "seg": out.seg, "pcl": out.pcl,
                     "contacts": out.contacts}
@@ -71,11 +74,28 @@ def _make_insertion(cfg=None, num_envs=128, **kw):
     return InsertionVecEnv(cfg=cfg, num_envs=num_envs, **kw)
 
 
-# task registry; the reference also registers FactoryTaskGraspTactile and
-# FactoryTaskOptimizeTactile, which wait for their modules
-task_map = {"FactoryTaskInsertionTactile": _make_insertion}
-_NOT_PORTED = {"FactoryTaskGraspTactile": "envs/grasp_gen.py",
-               "FactoryTaskOptimizeTactile": "sysid.py"}
+class GraspGenTask:
+    """FactoryTaskGraspTactile: writes a grasp dataset (`envs/grasp_gen.py`)
+    from `num_envs` envs a round, on CUDA unless `device="cpu"` is given."""
+
+    def __init__(self, cfg=None, num_envs=128, device=None):
+        self.cfg = cfg or default_task_config()
+        self.num_envs = num_envs
+        self.device = resolve_device(device)
+        self.model = build_kuka_openhand()
+        self.subs = build_subassembly_set()
+
+    def run(self, n_rounds: int, out_path: str, **kw) -> int:
+        from .grasp_gen import generate_grasp_dataset
+
+        return generate_grasp_dataset(self.cfg, self.model, self.subs, self.num_envs, n_rounds, out_path,
+                                      device=self.device, **kw)
+
+
+# task registry; the reference also registers FactoryTaskOptimizeTactile,
+# which waits for its module
+task_map = {"FactoryTaskInsertionTactile": _make_insertion, "FactoryTaskGraspTactile": GraspGenTask}
+_NOT_PORTED = {"FactoryTaskOptimizeTactile": "sysid.py"}
 
 
 def make(task_name: str, **kwargs):

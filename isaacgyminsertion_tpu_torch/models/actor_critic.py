@@ -3,7 +3,9 @@
 Port of `ActorCriticSplit` in `isaacgyminsertion_tpu/models/actor_critic.py`:
 priv-MLP 64→[256,128,8] latent, actor/critic MLPs [512,256,128] over
 obs ⊕ latent (ELU throughout), a linear mu head, a linear value head and a
-state-independent learned log-std. `convert_jax_params` turns the reference's
+state-independent learned log-std; with `use_contact_ae` an extrinsic-contact
+autoencoder (`ContactAE`, 400 → 8 → 400) adds its code to the latent and its
+reconstruction to the extras. `convert_jax_params` turns the reference's
 flax parameter tree into this module's state dict and `to_jax_params` turns it
 back; `init_like_flax` draws a fresh network with flax's default initializers.
 The Gaussian policy helpers (`sample_actions`, `gaussian_neglogp`,
@@ -38,45 +40,83 @@ class MLP(nn.Module):
         return x
 
 
+class ContactAE(nn.Module):
+    """Extrinsic-contact autoencoder: contacts [B, contact_dim] → (code
+    [B, latent_dim], sigmoid reconstruction [B, contact_dim])."""
+
+    def __init__(self, latent_dim: int = 8, contact_dim: int = 400):
+        super().__init__()
+        self.enc = MLP(contact_dim, (128, 64, latent_dim), activate_last=False)
+        self.dec_h = MLP(latent_dim, (64, 128))
+        self.dec_out = nn.Linear(128, contact_dim)
+
+    def encode(self, contacts):
+        return self.enc(contacts)
+
+    def decode(self, z):
+        return torch.sigmoid(self.dec_out(self.dec_h(z)))
+
+    def forward(self, contacts):
+        z = self.encode(contacts)
+        return z, self.decode(z)
+
+
 class ActorCriticSplit(nn.Module):
     def __init__(self, num_actions: int = 6, obs_dim: int = 15, priv_dim: int = 64,
-                 priv_units: Sequence[int] = (256, 128, 8), units: Sequence[int] = (512, 256, 128)):
+                 priv_units: Sequence[int] = (256, 128, 8), units: Sequence[int] = (512, 256, 128),
+                 use_contact_ae: bool = False, contact_dim: int = 400):
         super().__init__()
-        in_dim = obs_dim + priv_units[-1]
+        self.use_contact_ae = use_contact_ae
+        in_dim = obs_dim + priv_units[-1] + (8 if use_contact_ae else 0)
         self.priv_mlp = MLP(priv_dim, priv_units)
         self.actor_mlp = MLP(in_dim, units)
         self.critic_mlp = MLP(in_dim, units)
         self.mu = nn.Linear(units[-1], num_actions)
         self.value = nn.Linear(units[-1], 1)
         self.log_std = nn.Parameter(torch.zeros(num_actions))
+        if use_contact_ae:
+            self.contact_ae = ContactAE(contact_dim=contact_dim)
 
-    def forward(self, obs, priv_info, latent=None):
-        """Returns (mu, log_std, value, latent_gt); `latent` overrides the
-        priv encoder output (student latent injection)."""
+    def forward(self, obs, priv_info, latent=None, contacts=None):
+        """Returns (mu, log_std, value, latent_gt, extras); `latent` overrides
+        the priv encoder output (student latent injection); with the contact
+        autoencoder on and `contacts` given, its code joins the latent and
+        `extras["contact_recon"]` holds its reconstruction."""
         latent_gt = self.priv_mlp(priv_info)
         z = latent_gt if latent is None else latent
+        extras = {}
+        if self.use_contact_ae and contacts is not None:
+            cz, recon = self.contact_ae(contacts)
+            z = torch.cat([z, cz], dim=-1)
+            extras["contact_recon"] = recon
         x = torch.cat([obs, z], dim=-1)
         mu = self.mu(self.actor_mlp(x))
         value = self.value(self.critic_mlp(x))[..., 0]
-        return mu, self.log_std, value, latent_gt
+        return mu, self.log_std, value, latent_gt, extras
 
 
 def convert_jax_params(params) -> "OrderedDict[str, torch.Tensor]":
     """flax `ActorCriticSplit` params → `ActorCriticSplit.state_dict()`.
 
     A flax Dense `kernel` is [in, out]; a torch Linear `weight` is [out, in].
-    Accepts the tree with or without its top-level "params" key."""
+    Accepts the tree with or without its top-level "params" key; a
+    `contact_ae` subtree maps onto the `ContactAE`."""
     p = params.get("params", params)
     t = lambda a: torch.as_tensor(np.array(a, np.float32))
     sd = OrderedDict()
-    for mlp in ("priv_mlp", "actor_mlp", "critic_mlp"):
-        dense = sorted(p[mlp], key=lambda k: int(k.split("_")[1]))
+    mlps = [(mlp, p[mlp]) for mlp in ("priv_mlp", "actor_mlp", "critic_mlp")]
+    heads = [(head, p[head]) for head in ("mu", "value")]
+    if "contact_ae" in p:
+        mlps += [(f"contact_ae.{m}", p["contact_ae"][m]) for m in ("enc", "dec_h")]
+        heads.append(("contact_ae.dec_out", p["contact_ae"]["dec_out"]))
+    for mlp, node in mlps:
+        dense = sorted(node, key=lambda k: int(k.split("_")[1]))
         for i, name in enumerate(dense):
-            sd[f"{mlp}.layers.{i}.weight"] = t(p[mlp][name]["kernel"]).T.contiguous()
-            sd[f"{mlp}.layers.{i}.bias"] = t(p[mlp][name]["bias"])
-    for head in ("mu", "value"):
-        sd[f"{head}.weight"] = t(p[head]["kernel"]).T.contiguous()
-        sd[f"{head}.bias"] = t(p[head]["bias"])
+            sd[f"{mlp}.layers.{i}.weight"] = t(node[name]["kernel"]).T.contiguous()
+            sd[f"{mlp}.layers.{i}.bias"] = t(node[name]["bias"])
+    for head, node in heads:
+        sd[f"{head}.weight"] = t(node["kernel"]).T.contiguous()
+        sd[f"{head}.bias"] = t(node["bias"])
     sd["log_std"] = t(p["log_std"])
     return sd
 
@@ -86,14 +126,19 @@ def to_jax_params(state_dict) -> dict:
     float32 numpy arrays, kernels [in, out] (the inverse of
     `convert_jax_params`; the layout of the reference's checkpoints)."""
     a = lambda t: np.array(t.detach().cpu(), np.float32)   # a copy, never a view of a parameter
-    p = {}
-    for mlp in ("priv_mlp", "actor_mlp", "critic_mlp"):
-        n = sum(1 for k in state_dict if k.startswith(f"{mlp}.layers.") and k.endswith(".weight"))
-        p[mlp] = {f"Dense_{i}": {"kernel": a(state_dict[f"{mlp}.layers.{i}.weight"]).T.copy(),
-                                 "bias": a(state_dict[f"{mlp}.layers.{i}.bias"])} for i in range(n)}
-    for head in ("mu", "value"):
-        p[head] = {"kernel": a(state_dict[f"{head}.weight"]).T.copy(), "bias": a(state_dict[f"{head}.bias"])}
+    dense = lambda key: {"kernel": a(state_dict[f"{key}.weight"]).T.copy(),
+                         "bias": a(state_dict[f"{key}.bias"])}
+
+    def mlp(key):
+        n = sum(1 for k in state_dict if k.startswith(f"{key}.layers.") and k.endswith(".weight"))
+        return {f"Dense_{i}": dense(f"{key}.layers.{i}") for i in range(n)}
+
+    p = {m: mlp(m) for m in ("priv_mlp", "actor_mlp", "critic_mlp")}
+    p.update({head: dense(head) for head in ("mu", "value")})
     p["log_std"] = a(state_dict["log_std"])
+    if "contact_ae.dec_out.weight" in state_dict:
+        p["contact_ae"] = {"enc": mlp("contact_ae.enc"), "dec_h": mlp("contact_ae.dec_h"),
+                           "dec_out": dense("contact_ae.dec_out")}
     return {"params": p}
 
 
@@ -147,12 +192,15 @@ def actor_critic_from_jax_params(params, device=None) -> ActorCriticSplit:
     units = lambda mlp: tuple(v.shape[0] for k, v in sd.items()
                               if k.startswith(f"{mlp}.layers.") and k.endswith(".weight"))
     priv_units = units("priv_mlp")
+    use_ae = "contact_ae.dec_out.weight" in sd
     net = ActorCriticSplit(
         num_actions=sd["mu.weight"].shape[0],
-        obs_dim=sd["actor_mlp.layers.0.weight"].shape[1] - priv_units[-1],
+        obs_dim=sd["actor_mlp.layers.0.weight"].shape[1] - priv_units[-1] - (8 if use_ae else 0),
         priv_dim=sd["priv_mlp.layers.0.weight"].shape[1],
         priv_units=priv_units,
         units=units("actor_mlp"),
+        use_contact_ae=use_ae,
+        contact_dim=sd["contact_ae.dec_out.weight"].shape[0] if use_ae else 400,
     )
     net.load_state_dict(sd)
     return net.to(device).eval()

@@ -37,11 +37,12 @@ from torch.nn import functional as F
 NORM_EPS = 1e-6   # flax LayerNorm / GroupNorm default
 
 
-def _same_pad(x, kernel: int, stride: int):
-    """Zero-pad H and W as XLA's "SAME" does: out = ceil(in / stride), the odd
-    pixel of padding goes after (so 64→32 pads (0, 1), 27→14 pads (1, 1))."""
+def _same_pad(x, kernel: int, stride: int, dims: int = 2):
+    """Zero-pad the last `dims` axes (H and W, or the length of a 1-D conv's
+    input) as XLA's "SAME" does: out = ceil(in / stride), the odd pixel of
+    padding goes after (so 64→32 pads (0, 1), 27→14 pads (1, 1))."""
     pads = []
-    for size in (x.shape[-1], x.shape[-2]):            # F.pad takes the last dim first
+    for size in x.shape[-1:-dims - 1:-1]:              # F.pad takes the last dim first
         total = max((math.ceil(size / stride) - 1) * stride + kernel - size, 0)
         pads += [total // 2, total - total // 2]
     return F.pad(x, pads)
@@ -55,6 +56,16 @@ class SameConv(nn.Conv2d):
 
     def forward(self, x):
         return super().forward(_same_pad(x, self.kernel_size[0], self.stride[0]))
+
+
+class SameConv1d(nn.Conv1d):
+    """Conv1d with flax's default padding ("SAME") over [B, C, L]."""
+
+    def __init__(self, in_ch, out_ch, kernel: int, stride: int = 1):
+        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=0)
+
+    def forward(self, x):
+        return super().forward(_same_pad(x, self.kernel_size[0], self.stride[0], dims=1))
 
 
 class FlaxMLP(nn.Module):
@@ -354,8 +365,9 @@ def convert_flax_params(params) -> "OrderedDict[str, torch.Tensor]":
     "params" key.
 
     Dense `kernel` [in, out] → Linear `weight` [out, in]; Conv `kernel` HWIO →
-    `weight` OIHW; LayerNorm/GroupNorm `scale` → `weight`; attention
-    projections and `pos_embed` keep the reference's shapes."""
+    `weight` OIHW, a 1-D Conv's [K, I, O] → [O, I, K]; LayerNorm/GroupNorm
+    `scale` → `weight`; attention projections (3-D kernels outside a `Conv_*`)
+    and `pos_embed` keep the reference's shapes."""
     p = params.get("params", params)
     t = lambda a: torch.as_tensor(np.array(a, dtype=np.float32))
     sd = OrderedDict()
@@ -367,12 +379,15 @@ def convert_flax_params(params) -> "OrderedDict[str, torch.Tensor]":
                 walk(val, path)
                 continue
             a = t(val)
+            weight = f"{prefix}.weight" if prefix else "weight"
             if name == "kernel" and a.ndim == 2:
-                sd[f"{prefix}.weight"] = a.T.contiguous()
+                sd[weight] = a.T.contiguous()
             elif name == "kernel" and a.ndim == 4:
-                sd[f"{prefix}.weight"] = a.permute(3, 2, 0, 1).contiguous()
+                sd[weight] = a.permute(3, 2, 0, 1).contiguous()
+            elif name == "kernel" and a.ndim == 3 and prefix.split(".")[-1].startswith("Conv"):
+                sd[weight] = a.permute(2, 1, 0).contiguous()
             elif name == "scale":
-                sd[f"{prefix}.weight"] = a
+                sd[weight] = a
             else:   # bias, pos_embed, attention kernels [E, H, D] / [H, D, E]
                 sd[path] = a
     walk(p, "")
@@ -384,9 +399,10 @@ def student_to_jax_params(state_dict) -> dict:
     `TactileHead`, …) → the flax tree `{"params": {...}}` as float32 numpy
     arrays (the inverse of `convert_flax_params`; the layout of the
     reference's student and tactile-regressor checkpoints). Linear `weight`
-    → `kernel` [in, out], Conv `weight` OIHW → `kernel` HWIO, norm `weight`
-    → `scale`; biases, attention kernels and `pos_embed` unchanged. Every
-    leaf is a copy, never a view of a parameter."""
+    → `kernel` [in, out], Conv `weight` OIHW → `kernel` HWIO (a 1-D Conv's
+    [O, I, K] → [K, I, O]), norm `weight` → `scale`; biases, attention
+    kernels and `pos_embed` unchanged. Every leaf is a copy, never a view of
+    a parameter."""
     tree: dict = {}
     for key, val in state_dict.items():
         a = np.array(val.detach().cpu(), np.float32)
@@ -398,6 +414,8 @@ def student_to_jax_params(state_dict) -> dict:
             node["kernel"] = np.ascontiguousarray(a.T)
         elif name == "weight" and a.ndim == 4:
             node["kernel"] = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+        elif name == "weight" and a.ndim == 3:
+            node["kernel"] = np.ascontiguousarray(a.transpose(2, 1, 0))
         elif name == "weight":
             node["scale"] = a
         else:
@@ -424,7 +442,7 @@ def init_student_like_flax(net: MultiModalModel, generator: torch.Generator) -> 
     for m in net.modules():
         if isinstance(m, nn.Linear):
             lecun(m.weight, m.in_features)
-        elif isinstance(m, nn.Conv2d):
+        elif isinstance(m, (nn.Conv1d, nn.Conv2d)):
             lecun(m.weight, m.weight[0].numel())
         elif isinstance(m, _Projection):
             lecun(m.kernel, m.fan_in)

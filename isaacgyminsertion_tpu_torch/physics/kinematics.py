@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops import const
@@ -54,6 +55,34 @@ def forward_kinematics(model: RobotModel, q: torch.Tensor) -> FK:
     com_w = body_t + rot.quat_apply(body_q, const(model.com, dev, dt))
     return FK(body_q=body_q, body_t=body_t, joint_axis_w=axis_w, com_w=com_w)
 
+
+
+def forward_kinematics_jump(model: RobotModel, q: torch.Tensor) -> FK:
+    """FK by pointer jumping (a parallel prefix over the static tree): every
+    body composes its parent's accumulated transform in ceil(log2(depth))
+    batched rounds over all bodies at once. The reference keeps it as the
+    documented alternative to the serial walk; nothing here calls it."""
+    nd = model.parent.shape[0]
+    batch = q.shape[:-1]
+    dev, dt = q.device, q.dtype
+    axes = const(model.axis, dev, dt)
+    qj = rot.quat_from_angle_axis(q, axes.expand(batch + (nd, 3)))
+    lq = rot.quat_mul(const(model.joint_q, dev, dt).expand(batch + (nd, 4)), qj)
+    lt = const(model.joint_t, dev, dt).expand(batch + (nd, 3))
+
+    parent = np.asarray(model.parent).copy()          # static jump pointers
+    Q, T = lq, lt
+    while (parent >= 0).any():
+        idx = np.where(parent >= 0, parent, 0)
+        has_parent = torch.as_tensor((parent >= 0)[:, None], device=dev)
+        cq, ct = rot.tf_combine(Q[..., idx, :], T[..., idx, :], Q, T)
+        Q = torch.where(has_parent, cq, Q)
+        T = torch.where(has_parent, ct, T)
+        parent = np.where(parent >= 0, parent[idx], -1)   # P_i ← P_{P_i}
+
+    axis_w = rot.quat_apply(Q, axes)
+    com_w = T + rot.quat_apply(Q, const(model.com, dev, dt))
+    return FK(body_q=Q, body_t=T, joint_axis_w=axis_w, com_w=com_w)
 
 
 def forward_kinematics_rates(model: RobotModel, fk: FK, qd: torch.Tensor) -> FK:

@@ -66,8 +66,9 @@ def test_actor_critic_matches_flax_apply():
     assert float(p_t.abs().max()) <= 5.0   # normalized inputs are clipped at ±5
     mu_j, log_std_j, v_j, lat_j, _ = JaxActorCritic().apply(ref["params"], o_j, p_j)
     with torch.no_grad():
-        mu_t, log_std_t, v_t, lat_t = net(o_t, p_t)
+        mu_t, log_std_t, v_t, lat_t, extras_t = net(o_t, p_t)
     np.testing.assert_allclose(mu_t.numpy(), np.asarray(mu_j), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(lat_t.numpy(), np.asarray(lat_j), rtol=1e-5, atol=1e-5)
+    assert extras_t == {}   # no contact autoencoder in r2b
     np.testing.assert_array_equal(log_std_t.detach().numpy(), np.asarray(log_std_j))

@@ -274,7 +274,7 @@ def test_collect_on_the_port_env_read_by_the_jax_dataset(tmp_path, monkeypatch):
         state = insertion.reset_all(cfg, model, subs, gen, 2)
         for _ in range(9):
             priv = insertion.priv_info_of(cfg, model, state)
-            mu, _, _, latent = net(rms_normalize(obs_rms, state.obs_queue),
+            mu, _, _, latent, _ = net(rms_normalize(obs_rms, state.obs_queue),
                                    rms_normalize(priv_rms, priv))
             act = torch.clamp(mu, -1.0, 1.0)
             eq, et = site_pose(model, forward_kinematics(model, state.phys.q), SITE_FINGERTIP_CENTERED)

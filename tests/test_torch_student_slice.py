@@ -40,6 +40,7 @@ from isaacgyminsertion_tpu_torch.algo import ext_adapt as t_ea
 from isaacgyminsertion_tpu_torch.algo.trainer import StudentEvaluator
 from isaacgyminsertion_tpu_torch.envs import insertion as t_env
 from isaacgyminsertion_tpu_torch.envs.config import default_task_config as t_default_cfg
+from isaacgyminsertion_tpu_torch.models import zoo
 from isaacgyminsertion_tpu_torch.physics import robot as t_robot
 
 torch.set_num_threads(1)
@@ -161,7 +162,8 @@ def test_three_student_steps_match(fused_reference):
 def test_render_capacity_gathers_the_consumers():
     """render_capacity < 1: the rows that consume a frame this step are
     rendered and scattered back; the others keep their frame; nothing is
-    dropped while the consumers fit the capacity."""
+    dropped while the consumers fit the capacity; the CycleGAN hook
+    translates the gathered rows."""
     cfg = _sensors_on(t_default_cfg())
     cfg = cfg.replace(env=dataclasses.replace(cfg.env, render_capacity=0.75, compute_contact_gt=False))
     model, subs = t_robot.build_kuka_openhand(), t_assets.build_subassembly_set()
@@ -185,5 +187,12 @@ def test_render_capacity_gathers_the_consumers():
             _close(s.phys.q.numpy(), s_full.phys.q.numpy(), 1e-6, 1e-6, "physics does not depend on it")
             same = (out.seg == out_full.seg).float().mean()
             assert float(same) > 0.995                                          # same frames either way
-    with pytest.raises(NotImplementedError):
-        t_env.step(cfg, model, subs, s, torch.zeros((n, 6)), gen, gan_params={})
+    # the CycleGAN hook runs on the gathered rows: a kept frame stays as it was,
+    # the translated ones stay finite and in [0, 1]
+    gan = zoo.init_like_flax(zoo.ResnetGenerator(), torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        prev = s.tactile_queue[:, 0].clone()
+        s, out = t_env.step(cfg, model, subs, s, torch.zeros((n, 6)), gen, gan=gan)
+    kept = ((s.frame + s.tactile_refresh_offset) % s.tactile_refresh_rate) != 0
+    assert bool((s.tactile_queue[:, 0][kept] == prev[kept]).all())
+    assert bool(torch.isfinite(out.tactile).all()) and 0.0 <= float(out.tactile.min()) <= float(out.tactile.max()) <= 1.0
