@@ -4,7 +4,11 @@
     python3 chip_smoke.py            # everything; the last line is {"ok": true, ...}
     python3 chip_smoke.py --kernels-only   # phases 1-3 and 7, no result line
 
-Phases, in order; any failure exits nonzero without printing a result:
+Any failure exits nonzero without printing a result. Phases 1-3 and 7 run
+first, in this process, alone on the card. The main paths (phases 4-6 and
+8-16) then run as worker processes of this script (`--unit`), UNIT_SLOTS at
+a time: UNITS groups them, a unit starts once the units whose files it reads
+have ended, and each unit's output is printed when it ends. The phases:
   1. device and precision: CUDA present, card name and power limit, TF32 off;
   2. build every hand-written kernel from the sources in this checkout (one
      nvcc per source, all started together), with ptxas' register counts;
@@ -28,6 +32,9 @@ Phases, in order; any failure exits nonzero without printing a result:
        (both kinds): outputs finite and in [0, 1], residual against the
        noise-off image (lit pixels away from the clip) with mean within
        ±1e-3 of 0 and std within 5 % of 0.01;
+     - the deploy path's grid, from 1-env SimInterfaces three steps after
+       reset: the solver at N = 1, and on student_r3's flags the tactile
+       renderer at R = 3 rows and the camera at N = 1, at the tolerances above;
   4. main path, teacher: the teacher eval CLI with the banked r2b teacher at
      1024 envs for one 500-step episode (3 solver launches per control step,
      success must reach 0.5);
@@ -60,9 +67,10 @@ Phases, in order; any failure exits nonzero without printing a result:
      of scripts/train_s2.sh as scripts/retrain_student_r5.sh passes them
      (obs + point cloud, 6-dim action head, render_capacity 0.75, the
      stratified K = 400k reservoir, β annealed over 6e6 steps), teacher r2b,
-     256 envs for 2 epochs (seed 0), then its final 500-step eval at 64
-     envs: exactly 192 solver and 64 camera launches an epoch and 3 solver
-     and 1 camera launch an eval step, no tactile launch, 32,768 agent
+     256 envs for 2 epochs (seed 0), then its final eval at 64 envs, cut
+     from 500 steps to 100: exactly 192 solver and 64 camera launches an
+     epoch and 3 solver and 1 camera launch an eval step, no tactile
+     launch, 32,768 agent
      steps, the reservoir's cursors and fills as Algorithm R counts them,
      the losses and parameters finite after each epoch; per epoch it prints
      env-steps/s, the rollout, normalizer, scatter and update seconds, peak
@@ -119,10 +127,38 @@ Phases, in order; any failure exits nonzero without printing a result:
      epoch (cut from 10) on phase 10's collection: the loss finite and its
      last 50 steps below its first 50; `predict` on 256 observations gives
      [256, 8, 6], finite, in [-1, 1]; the checkpoint loads back.
+ 14. sys-id (scripts/sys_id.sh's path): 20 steps of one env recorded with
+     the r2b teacher's deterministic actions under the scales SYSID_TRUTH;
+     the replay objective at those scales must be below a tenth of its value
+     at all-ones; then `python -m isaacgyminsertion_tpu_torch.sysid`'s main
+     with 12 TPE trials (its KDE branch runs): exactly (12 + 2) x 20 x 3 = 840
+     solver launches, no renderer launch; the best scales beside the truth;
+ 15. PBT (scripts/run_pbt_r5.sh's population: r2b restored into 4 members,
+     lr 1e-4 / 5e-5 / 2.5e-5 / 1.25e-5, 512 envs, horizon 64, fail resets;
+     cut to 2 intervals of 1 epoch, START_AFTER = INITIAL_DELAY = 0, the
+     in-training objective) through `pbt.run`'s main: exactly 1,536 solver
+     launches, no renderer launch, 8 log lines with the reference's keys,
+     finite parameters after every epoch, a best.pbt; its exported
+     best_success.ckpt runs in the teacher eval CLI (256 envs, 50 steps: 150
+     solver launches);
+ 16. deploy, all at one env: (a) HardwarePlayer (r2b) on a SimInterface for
+     100 steps (3 solver launches a step), its trail logged by DataLoggerReal;
+     (b) StudentHardwarePlayer (student_r3) on phase 6's flags, 30 steps (3
+     solver, 1 tactile, 1 camera launch a step, every frame finite and in
+     range); (c) (a)'s player over RemoteInterface <-> serve_hardware on
+     loopback, 30 steps, the native codec asserted, its actions against (a)'s
+     (printed, with the first differing step where they differ by more than
+     1e-5); (d) the diffusion player on phase 13's checkpoint and the position
+     player on 10b's regressor (tactile flag: 1 tactile launch a step), 16
+     steps each; (e) calibrate_deploy_scales against (a)'s trail, 6 trials x
+     20 steps: exactly 360 solver launches, a finite best loss; (f) a
+     CompositeEnv on a CUDA KinematicArm servoed 60 steps along +x, and
+     SafetyLimits clamping a step into the workspace's wall.
 Phase 3 prints the random solver set's error beside the worst error relative
 to |plain|, the largest |plain| and the share of SOLVER_TOL it uses: the set
 drives some envs to huge impulses, where the absolute error is large.
-Launch counts are zeroed just before each main path and read just after. The
+Launch counts are zeroed just before each main path and read just after, in
+the worker that runs it; the main process sums the workers' counts. The
 line before the last is a JSON object listing every ported kernel with its
 launches summed over the main paths; the last line is {"ok": true, "device": {...}}.
 """
@@ -130,6 +166,7 @@ launches summed over the main paths; the last line is {"ok": true, "device": {..
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -180,6 +217,7 @@ TRAIN_S2_ARGS = ["train.algo=ExtrinsicAdapt", "test=False", f"checkpoint={CHECKP
                  "dagger.replay_mode=device_split", "eval_freq_steps=2e6", "eval_envs=256",
                  "max_epochs=1500", "dagger.replay_stratify=True", "dagger.beta_anneal_steps=6e6"]
 STUDENT_EPOCHS = 2
+STUDENT_EVAL_STEPS = 100        # phase 9's final eval at 64 envs, cut from the recipe's 500 steps
 R5_RECORD = (0.0700, 0.0208)   # action_loss of epochs 1 and 2, checkpoints/student_r5/metrics.jsonl
 # scripts/chip_offline_r5.sh: the collection (collect_s1.sh's flags) and the offline recipe
 OFFLINE_R5 = os.path.join(ROOT, "checkpoints", "offline_r5")
@@ -210,6 +248,21 @@ GRASP_KEYS = {"sub_idx": "int32", "dof_pos": "float32", "socket_pos": "float32",
               "plug_pos_hand": "float32", "plug_quat_hand": "float32"}
 GAN_EPOCHS = 1                  # CycleGANConfig's 5, cut
 DIFFUSION_EPOCHS = 1            # DiffusionConfig's 10, cut
+# sys-id: a trail recorded under known scales, then sys_id.sh's TPE (its KDE branch
+# starts at 8 trials of history)
+SYSID_TRUTH = {"mu_scale": 1.5, "kp_scale": 1.0, "kd_scale": 1.0, "mass_scale": 1.2}
+SYSID_STEPS, SYSID_TRIALS = 20, 12
+# scripts/run_pbt_r5.sh's population at the scripts' own sizes, cut in depth (from 24
+# intervals of 12 epochs, START_AFTER 1.5e6, INITIAL_DELAY 3e6, EVAL_OBJECTIVE 1)
+PBT_ENV = {"RESTORE": CHECKPOINT + ".ckpt", "LR_SPREAD": "1e-4,5e-5,2.5e-5,1.25e-5", "POLICIES": "4",
+           "NUM_ENVS": "512", "HORIZON": "64", "EPOCHS_PER_INTERVAL": "1", "INTERVALS": "2",
+           "START_AFTER": "0", "INITIAL_DELAY": "0", "EVAL_OBJECTIVE": "0"}
+PBT_LOG_KEYS = {"interval", "policy", "objective", "hparams", "replaced", "agent_steps", "train_success_mean",
+                "secs"}
+# the deploy runs, all at one env
+DEPLOY_STEPS, STUDENT_DEPLOY_STEPS, LOOPBACK_STEPS, AUX_DEPLOY_STEPS = 100, 30, 30, 16
+CALIB_TRIALS, CALIB_STEPS = 6, 20
+ARM_STEPS, ARM_DX = 60, 0.002
 
 
 def stand_in_real(frames):
@@ -374,19 +427,32 @@ def _train_student(cli, counts_zero, counts, substeps, out_dir):
     """Phase 9: DAgger student training through the CLI → the launch counts of its run."""
     import torch
 
+    from isaacgyminsertion_tpu_torch.algo import trainer as trainer_mod
+
     argv = TRAIN_S2_ARGS + [f"task.env.numEnvs={STUDENT_ENVS}", f"max_epochs={STUDENT_EPOCHS}", "seed=0",
                             "eval_freq_steps=1e12", "eval_envs=64", f"output={out_dir}"]
+    eval_task_config = trainer_mod.eval_task_config
+
+    def short_eval(cfg_task):
+        """The trainer's eval config with its episode cut to STUDENT_EVAL_STEPS (depth only)."""
+        cfg = eval_task_config(cfg_task)
+        return cfg.replace(rl=dataclasses.replace(cfg.rl, max_episode_length=STUDENT_EVAL_STEPS))
+
     counts_zero()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = cli.main(argv)
+    trainer_mod.eval_task_config = short_eval
+    try:
+        trainer = cli.main(argv)
+    finally:
+        trainer_mod.eval_task_config = eval_task_config
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     c = counts()
     da = trainer.da_cfg
-    # the student eval runs whole chunks of 50 steps: 500 at the recipe's episode length
-    steps, eval_steps = da.horizon * STUDENT_EPOCHS, -(-trainer.cfg_task.rl.max_episode_length // 50) * 50
+    # the student eval runs whole chunks of 50 steps
+    steps, eval_steps = da.horizon * STUDENT_EPOCHS, -(-STUDENT_EVAL_STEPS // 50) * 50
     print(f"main path: student training (train_s2.sh as retrain_student_r5.sh runs it: horizon "
           f"{da.horizon}, {da.mini_epochs} mini-epochs, reservoir {da.replay_size} stratified), "
           f"{STUDENT_ENVS} envs x {STUDENT_EPOCHS} epochs + a {eval_steps}-step eval at 64 envs: "
@@ -463,10 +529,9 @@ def _train_student_tactile(cli, counts_zero, counts, substeps, out_dir):
     return c
 
 
-def _data_path(counts_zero, counts, substeps, work):
-    """Phase 10: collection, one offline epoch, the banked student's loss on
-    the collection and its replay → the launch counts of the collection and
-    of the replay."""
+def _collect_path(counts_zero, counts, substeps, work):
+    """Phase 10: collection, one offline epoch and the banked student's loss
+    on the collection → the launch counts of the collection."""
     import shutil
 
     import numpy as np
@@ -562,10 +627,18 @@ def _data_path(counts_zero, counts, substeps, work):
           + ("" if 0.0084 <= loss <= 0.034 else ": OUTSIDE, a fault for ROADMAP"), flush=True)
     if not (math.isfinite(loss) and loss <= 3 * OFFLINE_R5_VAL):
         raise PhaseError(f"the banked student's loss on the collection is {loss} (> 0.05 or not finite)")
-    del runner
-    torch.cuda.empty_cache()
+    return c_collect
 
-    # the banked student's replay, through train_supervised's offline_training_w_env
+
+def _replay_path(counts_zero, counts, substeps, work):
+    """Phase 10, its second half: the banked student's replay through
+    train_supervised's offline_training_w_env, on phase 10's collection → the
+    launch counts of the replay."""
+    import torch
+
+    from isaacgyminsertion_tpu_torch import train_supervised
+
+    data, out = os.path.join(work, "traj"), os.path.join(work, "offline")
     counts_zero()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -587,7 +660,7 @@ def _data_path(counts_zero, counts, substeps, work):
     want = dict(contact_solver=substeps * 500, tactile_render=0, camera_render=500)
     if c_replay != want:
         raise PhaseError(f"replay launches {c_replay}, expected {want}")
-    return c_collect, c_replay
+    return c_replay
 
 
 def _tactile_data_path(cli, counts_zero, counts, work):
@@ -925,15 +998,433 @@ def _diffusion_path(work):
     print("diffusion checkpoint: {params, ema_params} in the flax layout, loads back", flush=True)
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="build, compare and time the kernels; skip the main paths (no result line)")
-    opts = ap.parse_args()
-    t_start = time.perf_counter()
+def _sysid_path(counts_zero, counts, substeps, work):
+    """Phase 14: sys-id (scripts/sys_id.sh's path) against a trail recorded at
+    one env under known scales → the launch counts of the replays."""
     import torch
 
-    # ---------------------------------------------------------------- 1. device
+    from isaacgyminsertion_tpu_torch import resolve_device, sysid
+    from isaacgyminsertion_tpu_torch.algo.ppo import make_act_fn
+    from isaacgyminsertion_tpu_torch.assets import build_subassembly_set
+    from isaacgyminsertion_tpu_torch.envs import insertion
+    from isaacgyminsertion_tpu_torch.envs.config import default_task_config
+    from isaacgyminsertion_tpu_torch.models.actor_critic import actor_critic_from_jax_params
+    from isaacgyminsertion_tpu_torch.models.running_mean_std import rms_to
+    from isaacgyminsertion_tpu_torch.physics.robot import build_kuka_openhand
+    from isaacgyminsertion_tpu_torch.utils.checkpoint import restore_path
+
+    dev = resolve_device(None)
+    cfg, model, subs = default_task_config(), build_kuka_openhand(), build_subassembly_set()
+    tree = restore_path(CHECKPOINT)
+    act = make_act_fn(cfg, actor_critic_from_jax_params(tree["params"], dev))
+    obs_rms, priv_rms = rms_to(tree["obs_rms"], dev), rms_to(tree["priv_rms"], dev)
+    # the r2b teacher's deterministic actions from the reset every trial starts from
+    t0 = time.perf_counter()
+    gen = insertion.make_generator(0, dev)
+    rec = {"actions": [], "plug_pos": [], "plug_quat": []}
+    with torch.no_grad():
+        state = insertion.reset_all(cfg, model, subs, gen, 1)
+        state = state._replace(params=sysid.scale_params(state.params, SYSID_TRUTH))
+        for _ in range(SYSID_STEPS):
+            a = act(obs_rms, priv_rms, state.obs_queue, insertion.priv_info_of(cfg, model, state))
+            state, _ = insertion.step(cfg, model, subs, state, a, gen)
+            for k, v in (("actions", a), ("plug_pos", state.phys.plug_pos), ("plug_quat", state.phys.plug_quat)):
+                rec[k].append(v[0].cpu().numpy().copy())
+    rec = {k: np.stack(v) for k, v in rec.items()}
+    traj = os.path.join(work, "sysid_rec.npz")
+    np.savez(traj, **rec)
+    t_rec = time.perf_counter() - t0
+    counts_zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    obj = sysid.make_replay_objective(cfg, model, subs, rec)
+    truth, ones = obj(SYSID_TRUTH), obj({})
+    t_score = time.perf_counter() - t0
+    best, hist = sysid.main(["--traj", traj, "--trials", str(SYSID_TRIALS)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = counts()
+    replays = SYSID_TRIALS + 2
+    print(f"main path: sys-id (sys_id.sh), 1 env x {SYSID_STEPS} steps recorded by the r2b teacher under "
+          f"{SYSID_TRUTH} in {t_rec:.2f} s; the objective at the true scales {truth:.6e}, at all-ones "
+          f"{ones:.6e} ({t_score:.2f} s for the two); {SYSID_TRIALS} TPE trials; {replays} replays in "
+          f"{secs:.2f} s ({secs / (replays * SYSID_STEPS) * 1e3:.1f} ms a replayed step), launches {c}",
+          flush=True)
+    want = dict(contact_solver=substeps * SYSID_STEPS * replays, tactile_render=0, camera_render=0)
+    if c != want:
+        raise PhaseError(f"sys-id launches {c}, expected {want}")
+    if not truth < 0.1 * ones:
+        raise PhaseError(f"sys-id: the objective at the true scales {truth} is not below a tenth of "
+                         f"all-ones' {ones}")
+    best_loss = min(loss for _, loss in hist)
+    print(f"sys-id: best {({k: round(v, 4) for k, v in best.items()})} loss {best_loss:.6e}; truth "
+          f"{SYSID_TRUTH} loss {truth:.6e}; losses by trial {[f'{x:.3e}' for _, x in hist]}", flush=True)
+    if not (len(hist) == SYSID_TRIALS and all(math.isfinite(x) for _, x in hist)):
+        raise PhaseError("sys-id: a trial's loss is not finite")
+    return c
+
+
+def _pbt_path(cli, counts_zero, counts, substeps, work):
+    """Phase 15: PBT (scripts/run_pbt_r5.sh's population, cut in depth) through
+    `python -m isaacgyminsertion_tpu_torch.pbt.run`'s main, then its exported
+    best in the teacher eval CLI → the launch counts of the sweep and the eval."""
+    import torch
+
+    from isaacgyminsertion_tpu_torch.pbt import run as pbt_run
+
+    ws = os.path.join(work, "pbt")
+    env = dict(PBT_ENV, WORKSPACE=ws)
+    counts_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    members = pbt_run.main(env)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = counts()
+    n_pol, n_int, horizon = int(env["POLICIES"]), int(env["INTERVALS"]), int(env["HORIZON"])
+    epochs = n_pol * n_int * int(env["EPOCHS_PER_INTERVAL"])
+    print(f"main path: PBT (run_pbt_r5.sh's population: {n_pol} members from r2b, lr {env['LR_SPREAD']}, "
+          f"{env['NUM_ENVS']} envs, horizon {horizon}; {n_int} intervals of {env['EPOCHS_PER_INTERVAL']} "
+          f"epoch), {epochs} epochs in {secs:.2f} s incl. the builds and resets, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches {c}", flush=True)
+    want = dict(contact_solver=substeps * horizon * epochs, tactile_render=0, camera_render=0)
+    if c != want:
+        raise PhaseError(f"PBT launches {c}, expected {want}")
+    rows = [json.loads(line) for line in open(os.path.join(ws, "pbt_log.jsonl"))]
+    if len(rows) != n_pol * n_int or any(set(r) != PBT_LOG_KEYS for r in rows):
+        raise PhaseError(f"pbt_log.jsonl: {len(rows)} lines, keys {sorted(set().union(*map(set, rows)))}")
+    for i, m in enumerate(members):
+        bad = [h for h in m["history"] if not (math.isfinite(h["param_norm"]) and math.isfinite(h["loss"]))]
+        if bad or len(m["history"]) != epochs // n_pol:
+            raise PhaseError(f"PBT member {i}: {len(m['history'])} epochs logged, not finite after {bad}")
+        print(f"PBT member {i}: env-steps/s by epoch {[round(h['env_steps_per_s'], 1) for h in m['history']]}, "
+              f"objective by interval {[r['objective'] for r in rows if r['policy'] == i]}, hparams "
+              f"{m['hparams']}, replaced {[r['replaced'] for r in rows if r['policy'] == i]}", flush=True)
+    if not all(os.path.isfile(os.path.join(ws, f)) for f in ("best.pbt", "best_success.ckpt")):
+        raise PhaseError(f"PBT wrote no best.pbt or no exported best_success.ckpt: {sorted(os.listdir(ws))}")
+    del members
+    torch.cuda.empty_cache()
+    counts_zero()
+    success = cli.main(["train.algo=PPO", "test=True", f"checkpoint={ws}/best_success", "num_envs=256",
+                        "task.rl.max_episode_length=50"])
+    c_eval = counts()
+    print(f"main path: PBT's exported best_success.ckpt in the teacher eval CLI, 256 envs x 50 steps: "
+          f"success {success:.4f}, launches {c_eval}", flush=True)
+    if c_eval != dict(contact_solver=substeps * 50, tactile_render=0, camera_render=0) or \
+            not (math.isfinite(success) and 0.0 <= success <= 1.0):
+        raise PhaseError(f"the PBT export's eval: success {success}, launches {c_eval}")
+    return c, c_eval
+
+
+def _deploy_path(cli, counts_zero, counts, substeps, work):
+    """Phase 16: the deploy stack at one env → {path: launch counts}."""
+    import torch
+
+    from isaacgyminsertion_tpu_torch.data.logger import DataLoggerReal
+    from isaacgyminsertion_tpu_torch.deploy import (DiffusionHardwarePlayer, HardwarePlayer,
+                                                    PosPredHardwarePlayer, SimInterface,
+                                                    StudentHardwarePlayer, calib, devices, transport)
+    from isaacgyminsertion_tpu_torch.envs.config import default_task_config
+
+    cfg = default_task_config()
+    out = {}
+
+    class Steps:
+        """A deploy logger: keeps each step's observation and action, checks
+        the frames the player saw, and hands the step on to `inner`."""
+
+        def __init__(self, inner=None, frames=False):
+            self.inner, self.frames, self.obs, self.acts = inner, frames, [], []
+
+        def add_step(self, ob, act, done=False):
+            self.obs.append(ob)
+            self.acts.append(np.asarray(act))
+            if self.frames:
+                for k, lo, hi in (("tactile", 0.0, 1.0), ("seg", 0.0, 3.0), ("pcl", -1.0, 1.0)):
+                    x = ob[k]
+                    if x.size == 0 or not np.isfinite(x).all() or x.min() < lo or x.max() > hi:
+                        raise PhaseError(f"deploy frame {k} at step {len(self.obs)}: empty, not finite or "
+                                         f"outside [{lo}, {hi}]")
+            if self.inner is not None:
+                self.inner.add_step(ob, act, done=done)
+
+    def drive(label, hw, steps, want, deploy):
+        """`deploy()` → the steps it executed, checked against `want` launches a step."""
+        counts_zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = deploy()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        c = counts()
+        print(f"main path: deploy, {label}: {n} of {steps} steps in {secs:.2f} s ({secs / max(n, 1) * 1e3:.1f} ms "
+              f"a step), success {getattr(hw, 'success', None)}, launches {c}", flush=True)
+        w = {k: v * n for k, v in want.items()}
+        if c != w:
+            raise PhaseError(f"deploy {label}: launches {c}, expected {w}")
+        return n, c
+
+    def per_step(tactile=0, camera=0):
+        return dict(contact_solver=substeps, tactile_render=tactile, camera_render=camera)
+
+    # (a) the teacher player, its trail saved in the logger's schema
+    player = HardwarePlayer(CHECKPOINT, cfg)
+    trail = os.path.join(work, "deploy_trail")
+    logger = DataLoggerReal(trail)
+    rec_a, hw = Steps(logger), SimInterface(cfg, seed=0)
+    n_a, out["deploy teacher"] = drive("teacher player (r2b) on a 1-env SimInterface", hw, DEPLOY_STEPS,
+                                       per_step(), lambda: player.deploy(hw, DEPLOY_STEPS, logger=rec_a))
+    logger.close()
+
+    # (b) the student player: student_r3 (tactile, seg, pcl, latent into r2b) on phase 6's flags
+    args = cli.parse_args(R3_ARGS)
+    rec_b, hw = Steps(frames=True), SimInterface(args["task"], seed=0)
+    student = StudentHardwarePlayer(CHECKPOINT, STUDENT_R3, args["dagger"], args["task"])
+    _, out["deploy student"] = drive("student player (student_r3) on a sensors-on 1-env SimInterface", hw,
+                                     STUDENT_DEPLOY_STEPS, per_step(tactile=1, camera=1),
+                                     lambda: student.deploy(hw, STUDENT_DEPLOY_STEPS, logger=rec_b))
+    print(f"deploy student frames: {len(rec_b.obs)} observations finite and in range; tactile mean "
+          f"{np.mean([o['tactile'].mean() for o in rec_b.obs]):.4f}, seg ids "
+          f"{sorted(set(np.unique(rec_b.obs[-1]['seg']).tolist()))}", flush=True)
+
+    # (c) (a)'s player over loopback TCP, the native codec at both ends
+    served = SimInterface(cfg, seed=0)
+    thread = transport.serve_hardware(served, port=0)
+    try:
+        remote = transport.RemoteInterface(port=thread.server.server_address[1])
+        rec_c = Steps()
+        n_c, out["deploy loopback"] = drive("teacher player over RemoteInterface <-> serve_hardware(SimInterface)",
+                                            remote, LOOPBACK_STEPS, per_step(),
+                                            lambda: player.deploy(remote, LOOPBACK_STEPS, logger=rec_c))
+        remote.close()
+    finally:
+        thread.server.shutdown()
+        thread.server.server_close()
+    # one process holds both ends: the server's codec is the client's
+    codec, note = transport.codec()
+    if codec != "native":
+        raise PhaseError(f"loopback: the transport took the {codec} codec ({note})")
+    k = min(n_c, n_a)
+    diff = np.abs(np.stack(rec_c.acts[:k]) - np.stack(rec_a.acts[:k])).max(axis=1)
+    print(f"deploy loopback: codec {codec} at both ends ({note}); actions of {k} steps against "
+          f"(a)'s: max abs difference {float(diff.max()):.3e}", flush=True)
+    if float(diff.max()) > 1e-5:
+        t = int(np.argmax(diff > 1e-5))
+        d_obs = float(np.abs(rec_c.obs[t]["obs"] - rec_a.obs[t]["obs"]).max())
+        print(f"deploy loopback: NOT within 1e-5: the first differing step is {t} (action differs by "
+              f"{float(diff[t]):.3e}); its observation differs from (a)'s by {d_obs:.3e}, so "
+              f"{'the env state diverged before it' if d_obs > 0 else 'the same observation gave another action'}",
+              flush=True)
+
+    # (d) the diffusion player on phase 13's checkpoint, the position player on 10b's regressor
+    diffusion = DiffusionHardwarePlayer(os.path.join(work, "diffusion", "last"), cfg)
+    hw = SimInterface(cfg, seed=1)
+    _, out["deploy diffusion"] = drive("diffusion player (phase 13's EMA weights)", hw, AUX_DEPLOY_STEPS,
+                                       per_step(), lambda: diffusion.deploy(hw, AUX_DEPLOY_STEPS))
+    cfg_t = cfg.replace(env=dataclasses.replace(cfg.env, tactile=True))
+    position = PosPredHardwarePlayer(os.path.join(work, "tactile_reg", "last"), cfg_t)
+    hw_t = SimInterface(cfg_t, seed=2)
+    _, out["deploy position"] = drive("position player (phase 10b's regressor) on the tactile flag", hw_t,
+                                      AUX_DEPLOY_STEPS, per_step(tactile=1),
+                                      lambda: position.deploy(hw_t, AUX_DEPLOY_STEPS))
+
+    # (e) calibration of the deploy scales against (a)'s trail
+    trajs = calib.load_sim_trajectories(os.path.join(trail, "*.npz"))
+    if len(trajs) != 1 or len(trajs[0]["actions"]) != n_a:
+        raise PhaseError(f"calibration: {len(trajs)} trails loaded from the logger, expected one of {n_a} steps")
+    counts_zero()
+    t0 = time.perf_counter()
+    best, loss, hist = calib.calibrate_deploy_scales(SimInterface(cfg, seed=0), trajs, n_trials=CALIB_TRIALS,
+                                                     max_steps=CALIB_STEPS, seed=0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = out["calibration"] = counts()
+    print(f"main path: calibration, {CALIB_TRIALS} trials x {CALIB_STEPS} steps against (a)'s trail: {secs:.2f} s, "
+          f"best loss {loss:.6e} m, best {({k: round(v, 6) for k, v in best.items()})}, launches {c}", flush=True)
+    want = dict(contact_solver=substeps * CALIB_TRIALS * CALIB_STEPS, tactile_render=0, camera_render=0)
+    if c != want or not math.isfinite(loss):
+        raise PhaseError(f"calibration: launches {c} (expected {want}), best loss {loss}")
+
+    # (f) the composite env on a CUDA kinematic arm: servo along +x, then the workspace wall
+    arm = devices.KinematicArm()
+    env = devices.CompositeEnv(devices.CompositeEnvConfig(with_hand=False), arm=arm)
+    try:
+        if not env.ready or arm.device.type != "cuda":
+            raise PhaseError(f"composite env ready {env.ready}, arm on {arm.device}")
+        env.reset()
+        p0 = arm._read()["ee_pos"].copy()
+        t0 = time.perf_counter()
+        for _ in range(ARM_STEPS):
+            env.apply_action(np.array([ARM_DX, 0.0, 0.0]), np.zeros(3))
+        secs = time.perf_counter() - t0
+        d = arm._read()["ee_pos"] - p0
+        print(f"deploy arm: {ARM_STEPS} servo steps of {ARM_DX} m along +x in {secs:.3f} s: the eef moved "
+              f"{[round(float(x), 5) for x in d]} m", flush=True)
+        if not (d[0] > 0.5 * ARM_STEPS * ARM_DX and abs(d[1]) < 0.25 * d[0] and abs(d[2]) < 0.25 * d[0]):
+            raise PhaseError(f"the kinematic arm did not follow +x: {d}")
+        time.sleep(0.05)                                  # the poller refreshes the pose
+        x = float(arm.latest()["ee_pos"][0])
+        env.cfg.safety.workspace_hi = (x + 1e-3, 0.3, 0.5)
+        env.apply_action(np.array([0.005, 0.0, 0.0]), np.zeros(3))
+        print(f"deploy arm: a 5 mm step toward a wall 1 mm away became {float(env._last_action[0]) * 1e3:.4f} mm",
+              flush=True)
+        if abs(float(env._last_action[0]) - 1e-3) > 1e-6:
+            raise PhaseError(f"SafetyLimits did not clamp the step at the wall: {env._last_action[:3]}")
+    finally:
+        env.close()
+    return out
+
+
+def _eval(cli, counts_zero, counts, label, argv, n, steps):
+    """One eval through the CLI → (success, launch counts)."""
+    import torch
+
+    counts_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    success = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = counts()
+    print(f"main path: {label}, {n} envs x {steps} steps: success {success:.4f}, {secs:.2f} s "
+          f"({n * steps / secs:.1f} env-steps/s incl. checkpoint load and reset), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches {c}", flush=True)
+    return success, c
+
+
+def _teacher_eval(x):
+    """Phase 4: the r2b teacher eval at N_ENVS envs, one 500-step episode."""
+    steps = x.steps
+    success, c = _eval(x.cli, x.counts_zero, x.counts, "r2b teacher eval",
+                       ["train.algo=PPO", "test=True", f"checkpoint={CHECKPOINT}", f"num_envs={N_ENVS}"],
+                       N_ENVS, steps)
+    if c != dict(contact_solver=x.substeps * steps, tactile_render=0, camera_render=0):
+        raise PhaseError(f"teacher path launches {c}, expected {x.substeps * steps} solver "
+                         f"launches (3 per control step) and no renderer launch")
+    if not success >= 0.5:
+        raise PhaseError(f"r2b success {success:.4f} < 0.5")
+    return {"teacher": c}
+
+
+def _r5_eval(x):
+    """Phase 5: path A, student_r5 (eval_s2.sh) at STUDENT_ENVS envs."""
+    steps = x.steps
+    success, c = _eval(x.cli, x.counts_zero, x.counts, "student_r5 eval (obs + pcl, action head)",
+                       EVAL_S2_ARGS + [f"checkpoint={CHECKPOINT}", f"student_checkpoint={STUDENT_R5}",
+                                       f"task.env.numEnvs={STUDENT_ENVS}"], STUDENT_ENVS, steps)
+    print(f"main path: student_r5 success {success:.4f} beside the JAX package's {R5_REFERENCE} "
+          f"(256 envs; trial std 0.02-0.034)", flush=True)
+    if c != dict(contact_solver=x.substeps * steps, tactile_render=0, camera_render=steps):
+        raise PhaseError(f"path A launches {c}, expected camera_render {steps}, contact_solver "
+                         f"{x.substeps * steps}, tactile_render 0")
+    if not success >= R5_FLOOR:
+        raise PhaseError(f"student_r5 success {success:.4f} < {R5_FLOOR}")
+    return {"A": c}
+
+
+def _r3_eval(x):
+    """Phase 6: path B, student_r3, then 50 steps of gathered renders."""
+    b_args = R3_ARGS + [f"checkpoint={CHECKPOINT}", f"student_checkpoint={STUDENT_R3}",
+                        f"task.env.numEnvs={STUDENT_ENVS}"]
+    _, c = _eval(x.cli, x.counts_zero, x.counts, "student_r3 eval (tactile + seg + pcl, latent injection)",
+                 b_args + [f"task.rl.max_episode_length={PATH_B_STEPS}"], STUDENT_ENVS, PATH_B_STEPS)
+    if c != dict(contact_solver=x.substeps * PATH_B_STEPS, tactile_render=PATH_B_STEPS,
+                 camera_render=PATH_B_STEPS):
+        raise PhaseError(f"path B launches {c}, expected one tactile and one camera launch per "
+                         f"control step ({PATH_B_STEPS})")
+    _, c_g = _eval(x.cli, x.counts_zero, x.counts, "student_r3 eval, render_capacity 0.75 (gathered renders)",
+                   b_args + ["task.env.render_capacity=0.75", "task.rl.max_episode_length=50"],
+                   STUDENT_ENVS, 50)
+    if c_g != dict(contact_solver=x.substeps * 50, tactile_render=50, camera_render=50):
+        raise PhaseError(f"gathered path launches {c_g}, expected 50 of each renderer")
+    return {"B": c}
+
+
+def _rotating_plug(x):
+    """Phase 10b; the frames' error against the plain renderer goes to `x.extra`."""
+    c, x.extra["tactile_err"] = _tactile_data_path(x.cli, x.counts_zero, x.counts, x.work)
+    return {"rotating plug": c}
+
+
+def _in(work, name):
+    path = os.path.join(work, name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _two(keys, pair):
+    return dict(zip(keys, pair))
+
+
+# every main path: phase -> its function of the unit's context → {path: launch counts},
+# in phase order (the order of the "launches by path" line)
+PHASES = {
+    "4": _teacher_eval,
+    "5": _r5_eval,
+    "6": _r3_eval,
+    "8": lambda x: {"training": _train(x.cli, x.counts_zero, x.counts, x.substeps, _in(x.work, "train"))},
+    "9": lambda x: {"student training": _train_student(x.cli, x.counts_zero, x.counts, x.substeps,
+                                                       _in(x.work, "student"))},
+    "9b": lambda x: {"student training, tactile": _train_student_tactile(
+        x.cli, x.counts_zero, x.counts, x.substeps, _in(x.work, "student_tactile"))},
+    "10": lambda x: {"collection": _collect_path(x.counts_zero, x.counts, x.substeps, x.work)},
+    "10 replay": lambda x: {"offline replay": _replay_path(x.counts_zero, x.counts, x.substeps, x.work)},
+    "10b": _rotating_plug,
+    "11": lambda x: _two(("grasp generation", "grasp training"),
+                         _grasp_path(x.cli, x.counts_zero, x.counts, x.substeps, x.work)),
+    "12": lambda x: {"student training, CycleGAN": _cyclegan_path(x.cli, x.counts_zero, x.counts,
+                                                                  x.substeps, x.work)},
+    "13": lambda x: _diffusion_path(x.work) or {},
+    "14": lambda x: {"sys-id": _sysid_path(x.counts_zero, x.counts, x.substeps, x.work)},
+    "15": lambda x: _two(("pbt", "pbt export eval"), _pbt_path(x.cli, x.counts_zero, x.counts, x.substeps,
+                                                               x.work)),
+    "16": lambda x: _deploy_path(x.cli, x.counts_zero, x.counts, x.substeps, x.work),
+}
+# The main paths run as worker processes of this script (--unit), UNIT_SLOTS at a time
+# on the one card. Each is bound by the host (one Python thread issues every op of a
+# control step and the card idles ~90% of it), so several processes share the card.
+# A unit is a few phases in one process; it starts once the units whose files it
+# reads have ended. The scheduler prefers the units in this order: the collection and
+# what reads it first, since they are the longest chain.
+UNITS = {
+    "collection": (("10",), ()),
+    "replay": (("10 replay",), ("collection",)),
+    "diffusion and deploy": (("13", "16"), ("collection", "rotating plug and CycleGAN")),
+    "rotating plug and CycleGAN": (("10b", "12"), ()),
+    "student training": (("9", "9b"), ()),
+    "pbt": (("15",), ()),
+    "student_r3 eval": (("6",), ()),
+    "teacher eval": (("4",), ()),
+    "student_r5 eval": (("5",), ()),
+    "teacher training, grasp resets, sys-id": (("8", "11", "14"), ()),
+}
+UNIT_SLOTS = 4
+
+
+def _counters():
+    """→ (counts_zero, counts) over the three kernels' launch counts in this process."""
+    from isaacgyminsertion_tpu_torch.physics import solver_kernel as sk
+    from isaacgyminsertion_tpu_torch.sensors import render_kernels as rk
+
+    def counts_zero():
+        sk.launch_count = 0
+        rk.tactile_launch_count = 0
+        rk.camera_launch_count = 0
+
+    def counts():
+        return dict(contact_solver=sk.launch_count, tactile_render=rk.tactile_launch_count,
+                    camera_render=rk.camera_launch_count)
+
+    return counts_zero, counts
+
+
+def _device():
+    """Check for the card and the checkout, turn TF32 off → (torch, the card's
+    name and power limit as nvidia-smi gives them)."""
+    import torch
+
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
     if not os.path.isdir(os.path.join(ROOT, PACKAGE)):
@@ -947,6 +1438,100 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    return torch, card
+
+
+def _worker(unit, work, result):
+    """Run the phases of `unit` in this process; write {"phases": {phase:
+    {path: launch counts}}, "extra": ...} to `result`."""
+    import types
+
+    torch, _ = _device()
+    from isaacgyminsertion_tpu_torch import cli
+    from isaacgyminsertion_tpu_torch.envs.config import default_task_config
+
+    cfg = default_task_config()
+    counts_zero, counts = _counters()
+    x = types.SimpleNamespace(cli=cli, counts_zero=counts_zero, counts=counts, substeps=cfg.sim.substeps,
+                              steps=cfg.rl.max_episode_length, work=work, extra={})
+    phases = {}
+    for p in UNITS[unit][0]:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phases[p] = PHASES[p](x)
+        print(f"phase {p}: {time.perf_counter() - t0:.2f} s", flush=True)
+    with open(result + ".tmp", "w") as f:
+        json.dump({"phases": phases, "extra": x.extra}, f)
+    os.replace(result + ".tmp", result)
+
+
+def _die_with_parent():
+    """In a worker, before it runs: the kernel kills it if this script dies."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)   # PR_SET_PDEATHSIG
+
+
+def _run_units(work):
+    """Run UNITS as worker processes, UNIT_SLOTS at a time, each once the units
+    it needs have ended; print each unit's output when it ends → {unit: its
+    result}. A unit that fails stops the others and raises."""
+    os.makedirs(os.path.join(work, "units"), exist_ok=True)
+    pending, running, done = list(UNITS), {}, {}
+    t_all = time.perf_counter()
+    try:
+        while pending or running:
+            for name in [n for n in pending if all(d in done for d in UNITS[n][1])]:
+                if len(running) >= UNIT_SLOTS:
+                    break
+                stem = os.path.join(work, "units", name.replace(" ", "_").replace(",", ""))
+                log = open(stem + ".log", "w")
+                proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--unit", name,
+                                         "--work", work, "--result", stem + ".json"],
+                                        stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+                                        preexec_fn=_die_with_parent)
+                running[name] = (proc, log, stem, time.perf_counter())
+                pending.remove(name)
+                print(f"unit {name} (phase {', '.join(UNITS[name][0])}) started at "
+                      f"{time.perf_counter() - t_all:.1f} s", flush=True)
+            time.sleep(0.5)
+            for name, (proc, log, stem, t0) in list(running.items()):
+                if proc.poll() is None:
+                    continue
+                del running[name]
+                log.close()
+                print(f"---- unit {name}: exit {proc.returncode} after {time.perf_counter() - t0:.1f} s "
+                      f"(ended at {time.perf_counter() - t_all:.1f} s)", flush=True)
+                with open(stem + ".log") as f:
+                    sys.stdout.write(f.read())
+                sys.stdout.flush()
+                if proc.returncode != 0:
+                    raise PhaseError(f"unit {name} (phase {', '.join(UNITS[name][0])}) exited "
+                                     f"{proc.returncode}")
+                with open(stem + ".json") as f:
+                    done[name] = json.load(f)
+    finally:
+        for proc, log, _, _ in running.values():
+            proc.kill()
+            proc.wait()
+            log.close()
+    return done
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build, compare and time the kernels; skip the main paths (no result line)")
+    ap.add_argument("--unit", choices=sorted(UNITS), help=argparse.SUPPRESS)   # a worker: one unit's phases
+    ap.add_argument("--work", help=argparse.SUPPRESS)
+    ap.add_argument("--result", help=argparse.SUPPRESS)
+    opts = ap.parse_args()
+    t_start = time.perf_counter()
+    if opts.unit:
+        _worker(opts.unit, opts.work, opts.result)
+        return
+    torch, card = _device()
     dev = torch.device("cuda")
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}; {card}", flush=True)
@@ -1103,86 +1688,48 @@ def main():
                 raise PhaseError(f"tactile_render noise {kind}: two seeds gave the same image")
             print(f"kernel noise: tactile_render {kind}: residual mean {mean:.3e}, std {std:.4e} "
                   f"(want 0 and 0.01), in [0, 1], finite", flush=True)
+        # the deploy path's grid, from 1-env SimInterfaces three steps after reset: the solver at
+        # N = 1 (two envs share a warp, so half of it has none), on student_r3's flags the tactile
+        # renderer at R = 3 rows and the camera at N = 1
+        from isaacgyminsertion_tpu_torch.deploy import SimInterface
+
+        one, one_s = SimInterface(cfg, seed=0), SimInterface(cli.parse_args(R3_ARGS)["task"], seed=0)
+        for hw in (one, one_s):
+            for _ in range(3):
+                hw.apply_action(np.zeros(3), np.zeros(3))
+        one_args = capture.contact_problem_of(model, one.state, H)
+        _, err_one = solver_vs_plain("env contacts, 1 env", one_args)
+        (t1_args, t1_kw), (c1_args, c1_kw) = capture.sensor_inputs(model, one_s.state)
+        k_img = rk.tactile_render_cuda(*t1_args, **t1_kw)
+        torch.cuda.synchronize()
+        errs[("tactile", "one env")], share_t = _compare_images("tactile_render exact, 1 env", k_img,
+                                                                rk.tactile_render_plain(*t1_args, **t1_kw))
+        kt, kd, kc = rk.camera_render_cuda(*c1_args, **c1_kw)
+        torch.cuda.synchronize()
+        pt, pd, pc = rk.camera_render_plain(*c1_args, **c1_kw)
+        errs[("camera", "one env")], share_c = _compare_images("camera_render exact, 1 env", kt, pt,
+                                                               [(kc, pc), (kd, pd)])
+        print(f"kernel vs plain at one env (SimInterface): contact_solver N=1 C={one_args[4].depth.shape[1]} "
+              f"max_abs_err {err_one:.3e} ({int(capture.active_counts(one_args[4]).sum())} contacts active); "
+              f"tactile_render exact R={t1_args[0].shape[0]} max_abs_err {errs[('tactile', 'one env')]:.3e}, "
+              f"{share_t:.5%} of pixels flipped; camera_render exact N={c1_args[0].shape[0]} max_abs_err "
+              f"{errs[('camera', 'one env')]:.3e}, {share_c:.5%} of pixels flipped", flush=True)
+        del one, one_s
+
+    # every image the sensors-on env hands out is finite and in range
+    with torch.no_grad():
+        for _ in range(5):
+            s_state, s_out = insertion.step(cfg_s, model, subs, s_state,
+                                            torch.zeros((STUDENT_ENVS, 6), device=dev), gen)
+    for name, img, lo, hi in (("tactile", s_out.tactile, 0.0, 1.0), ("seg", s_out.seg, 0.0, 3.0),
+                              ("pcl", s_out.pcl, -1.0, 1.0)):
+        if not bool(torch.isfinite(img).all()) or float(img.min()) < lo or float(img.max()) > hi:
+            raise PhaseError(f"sensor output {name} is not finite or leaves [{lo}, {hi}]")
+    print(f"sensors: tactile mean {float(s_out.tactile.mean()):.4f}, seg ids "
+          f"{sorted(set(s_out.seg.unique().tolist()))}, pcl centroid "
+          f"{[round(x, 4) for x in s_out.pcl.mean((0, 1, 2)).tolist()]}: finite and in range", flush=True)
 
     kernel_rows = []
-    results = {}
-    if not opts.kernels_only:
-        def counts_zero():
-            sk.launch_count = 0
-            rk.tactile_launch_count = 0
-            rk.camera_launch_count = 0
-
-        def counts():
-            return dict(contact_solver=sk.launch_count, tactile_render=rk.tactile_launch_count,
-                        camera_render=rk.camera_launch_count)
-
-        def run(label, argv, n, steps):
-            counts_zero()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            success = cli.main(argv)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            c = counts()
-            print(f"main path: {label}, {n} envs x {steps} steps: success {success:.4f}, {secs:.2f} s "
-                  f"({n * steps / secs:.1f} env-steps/s incl. checkpoint load and reset), peak memory "
-                  f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches {c}", flush=True)
-            return success, c
-
-        # ------------------------------------------------------ 4. teacher path
-        steps = cfg.rl.max_episode_length
-        success, c = run("r2b teacher eval", ["train.algo=PPO", "test=True", f"checkpoint={CHECKPOINT}",
-                                              f"num_envs={N_ENVS}"], N_ENVS, steps)
-        if c != dict(contact_solver=cfg.sim.substeps * steps, tactile_render=0, camera_render=0):
-            raise PhaseError(f"teacher path launches {c}, expected {cfg.sim.substeps * steps} solver "
-                             f"launches (3 per control step) and no renderer launch")
-        if not success >= 0.5:
-            raise PhaseError(f"r2b success {success:.4f} < 0.5")
-        results["teacher"] = c
-
-        # ------------------------------------------------- 5. path A, student_r5
-        success, c = run("student_r5 eval (obs + pcl, action head)",
-                         EVAL_S2_ARGS + [f"checkpoint={CHECKPOINT}", f"student_checkpoint={STUDENT_R5}",
-                                         f"task.env.numEnvs={STUDENT_ENVS}"], STUDENT_ENVS, steps)
-        print(f"main path: student_r5 success {success:.4f} beside the JAX package's {R5_REFERENCE} "
-              f"(256 envs; trial std 0.02-0.034)", flush=True)
-        if c != dict(contact_solver=cfg.sim.substeps * steps, tactile_render=0, camera_render=steps):
-            raise PhaseError(f"path A launches {c}, expected camera_render {steps}, contact_solver "
-                             f"{cfg.sim.substeps * steps}, tactile_render 0")
-        if not success >= R5_FLOOR:
-            raise PhaseError(f"student_r5 success {success:.4f} < {R5_FLOOR}")
-        results["A"] = c
-
-        # ------------------------------------------------- 6. path B, student_r3
-        b_args = R3_ARGS + [f"checkpoint={CHECKPOINT}", f"student_checkpoint={STUDENT_R3}",
-                            f"task.env.numEnvs={STUDENT_ENVS}"]
-        success, c = run("student_r3 eval (tactile + seg + pcl, latent injection)",
-                         b_args + [f"task.rl.max_episode_length={PATH_B_STEPS}"], STUDENT_ENVS,
-                         PATH_B_STEPS)
-        if c != dict(contact_solver=cfg.sim.substeps * PATH_B_STEPS, tactile_render=PATH_B_STEPS,
-                     camera_render=PATH_B_STEPS):
-            raise PhaseError(f"path B launches {c}, expected one tactile and one camera launch per "
-                             f"control step ({PATH_B_STEPS})")
-        results["B"] = c
-        success, c = run("student_r3 eval, render_capacity 0.75 (gathered renders)",
-                         b_args + ["task.env.render_capacity=0.75", "task.rl.max_episode_length=50"],
-                         STUDENT_ENVS, 50)
-        if c != dict(contact_solver=cfg.sim.substeps * 50, tactile_render=50, camera_render=50):
-            raise PhaseError(f"gathered path launches {c}, expected 50 of each renderer")
-        # every image the sensors-on env hands out is finite and in range
-        with torch.no_grad():
-            for _ in range(5):
-                s_state, s_out = insertion.step(cfg_s, model, subs, s_state,
-                                                torch.zeros((STUDENT_ENVS, 6), device=dev), gen)
-        for name, img, lo, hi in (("tactile", s_out.tactile, 0.0, 1.0), ("seg", s_out.seg, 0.0, 3.0),
-                                  ("pcl", s_out.pcl, -1.0, 1.0)):
-            if not bool(torch.isfinite(img).all()) or float(img.min()) < lo or float(img.max()) > hi:
-                raise PhaseError(f"sensor output {name} is not finite or leaves [{lo}, {hi}]")
-        print(f"sensors: tactile mean {float(s_out.tactile.mean()):.4f}, seg ids "
-              f"{sorted(set(s_out.seg.unique().tolist()))}, pcl centroid "
-              f"{[round(x, 4) for x in s_out.pcl.mean((0, 1, 2)).tolist()]}: finite and in range", flush=True)
-
     # ------------------------------------------------------------------ 7. times
     def bound(flop, nbytes):
         t_ops, t_bytes = flop / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -1205,7 +1752,7 @@ def main():
         solve = lambda args: time_ms(lambda: sk.solve_contacts_fused_cuda(*args, H), reps=50)
         solver_ms = statistics.median(solver_times)
         row(sk.KERNEL_NAME, "contact_solver.cu", "isaacgyminsertion_tpu/physics/solver_pallas.py:40",
-            max(err_real, err_train, err_student), solver_times,
+            max(err_real, err_train, err_student, err_one), solver_times,
             time_ms(lambda: sk.solve_contacts_fused_plain(*real_args, H), reps=5, warmup=1),
             sk.flops(n, c, active=int(k_env.sum())), sk.bytes_moved(n, c))
         print(f"times: contact_solver env substep {N_ENVS} envs {solver_ms:.4f} ms, "
@@ -1218,7 +1765,7 @@ def main():
         noise_kw = dict(generator=insertion.make_generator(9, dev), noise_std=0.01)
         r, p = t_rows[0].shape[0], t_rows[1].shape[1]
         row("tactile_render", "tactile_render.cu", "isaacgyminsertion_tpu/sensors/render_pallas.py:90",
-            errs[("tactile", "env state")],
+            max(errs[("tactile", "env state")], errs[("tactile", "one env")]),
             times_ms(lambda: rk.tactile_rows_cuda(*t_rows, **t_rkw, **noise_kw), reps=30, flush=flush),
             time_ms(lambda: rk.tactile_rows_plain(*t_rows, **t_rkw, **noise_kw), reps=5, warmup=1,
                     flush=flush),
@@ -1226,7 +1773,7 @@ def main():
         c_rows, c_rkw = capture.camera_packed(c_args, c_kw)
         n, p = c_rows[0].shape[0], c_rows[1].shape[1]
         row("camera_render", "camera_render.cu", "isaacgyminsertion_tpu/sensors/render_pallas.py:388",
-            errs[("camera", "env state")],
+            max(errs[("camera", "env state")], errs[("camera", "one env")]),
             times_ms(lambda: rk.camera_rows_cuda(*c_rows, **c_rkw), reps=30, flush=flush),
             time_ms(lambda: rk.camera_rows_plain(*c_rows, **c_rkw), reps=5, warmup=1, flush=flush),
             rk.camera_flops(c_rows[0], p, exact=True), rk.camera_bytes_moved(n, p))
@@ -1240,52 +1787,19 @@ def main():
         print("kernels only: the main paths were skipped, no result line", flush=True)
         return
 
-    # ------------------------------------------------------- 8. teacher training
+    # ------------------------------------------- 4-6, 8-16. the main paths
+    del real_args, train_args, student_args, rand_args, s_state, s_out
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as out_dir:
-        results["training"] = _train(cli, counts_zero, counts, cfg.sim.substeps, out_dir)
-
-    # ------------------------------------------------------- 9. student training
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_student_") as out_dir:
-        results["student training"] = _train_student(cli, counts_zero, counts, cfg.sim.substeps, out_dir)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_student_tactile_") as out_dir:
-        results["student training, tactile"] = _train_student_tactile(cli, counts_zero, counts,
-                                                                      cfg.sim.substeps, out_dir)
-
-    # ------------------------------------------------------- 10. the data path
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as work:
-        results["collection"], results["offline replay"] = _data_path(counts_zero, counts,
-                                                                      cfg.sim.substeps, work)
-        torch.cuda.empty_cache()
-        results["rotating plug"], err_rotate = _tactile_data_path(cli, counts_zero, counts, work)
-
-        # ------------------------------------------------ 11. grasp resets
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        results["grasp generation"], results["grasp training"] = _grasp_path(cli, counts_zero, counts,
-                                                                             cfg.sim.substeps, work)
-        print(f"phase 11: {time.perf_counter() - t0:.2f} s", flush=True)
-
-        # --------------------------------- 12. CycleGAN sim→real, tactile path
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        results["student training, CycleGAN"] = _cyclegan_path(cli, counts_zero, counts, cfg.sim.substeps,
-                                                               work)
-        print(f"phase 12: {time.perf_counter() - t0:.2f} s", flush=True)
-
-        # ----------------------------------------------- 13. diffusion policy
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        _diffusion_path(work)
-        print(f"phase 13: {time.perf_counter() - t0:.2f} s", flush=True)
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_work_") as work:
+        units = _run_units(work)
+    for p in PHASES:
+        for u in units.values():
+            results.update(u["phases"].get(p, {}))
+    err_rotate = units["rotating plug and CycleGAN"]["extra"]["tactile_err"]
     for r in kernel_rows:
         if r["name"] == "tactile_render":
             r["max_abs_err"] = max(r["max_abs_err"], err_rotate)
-
-    for r in kernel_rows:
         r["launches"] = sum(results[p][r["name"]] for p in results)
     print(f"launches by path: {json.dumps(results)}; {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card, flush=True)

@@ -3,9 +3,8 @@
 Port of `isaacgyminsertion_tpu/envs/vec_env.py`: the object API of the
 reference's VecTask (`reset()` / `step(actions)` → (obs_dict, rew, reset,
 extras), obs_dict keys obs/priv_info/student_obs/tactile/img/seg/pcl/contacts)
-over the functional env, and the grasp-generation task. The in-repo trainers
-call the functional step directly. The sys-id task waits for its module
-(`sysid.py`); `make` refuses it.
+over the functional env, the grasp-generation task and the sys-id task. The
+in-repo trainers call the functional step directly.
 """
 
 from __future__ import annotations
@@ -92,17 +91,32 @@ class GraspGenTask:
                                       device=self.device, **kw)
 
 
-# task registry; the reference also registers FactoryTaskOptimizeTactile,
-# which waits for its module
-task_map = {"FactoryTaskInsertionTactile": _make_insertion, "FactoryTaskGraspTactile": GraspGenTask}
-_NOT_PORTED = {"FactoryTaskOptimizeTactile": "sysid.py"}
+class SysIdTask:
+    """FactoryTaskOptimizeTactile: TPE over the sim parameters against a
+    recorded trajectory (`sysid.py`), on CUDA unless `device="cpu"` is given."""
+
+    def __init__(self, cfg=None, num_envs=1, device=None):
+        self.cfg = cfg or default_task_config()
+        self.device = resolve_device(device)
+        self.model = build_kuka_openhand()
+        self.subs = build_subassembly_set()
+
+    def run(self, recorded: dict, n_trials: int = 50, **kw):
+        from ..sysid import optimize_sim_params
+
+        return optimize_sim_params(self.cfg, self.model, self.subs, recorded, n_trials=n_trials,
+                                   device=self.device, **kw)
+
+
+task_map = {
+    "FactoryTaskInsertionTactile": _make_insertion,
+    "FactoryTaskGraspTactile": GraspGenTask,
+    "FactoryTaskOptimizeTactile": SysIdTask,
+}
 
 
 def make(task_name: str, **kwargs):
     """The task by its reference name (isaacgyminsertion.make)."""
-    if task_name in _NOT_PORTED:
-        raise NotImplementedError(f"{task_name} is not ported yet: it waits for "
-                                  f"{_NOT_PORTED[task_name]}")
     if task_name not in task_map:
         raise KeyError(f"unknown task {task_name}; available: {list(task_map)}")
     return task_map[task_name](**kwargs)

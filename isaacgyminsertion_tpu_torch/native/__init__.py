@@ -1,7 +1,8 @@
 """Native host runtime: the C++ trajectory writer, bound with ctypes.
 
-Port of `isaacgyminsertion_tpu/native/__init__.py` (the `.itraj` half; the
-hardware bridge is not ported yet). `trajlog.cpp` is built at first use into
+Port of `isaacgyminsertion_tpu/native/__init__.py`. This directory also
+holds `hwbridge.cpp`, the deploy transport's message codec, which
+`deploy/transport.py` builds and binds. `trajlog.cpp` is built at first use into
 the package's `_build/` (`utils/host_build.py`), never beside its source. If
 the toolchain or zlib is missing, `load` returns None and `BUILD_ERROR` says
 why; the data logger then falls back to the numpy writer. `read_trajectory`

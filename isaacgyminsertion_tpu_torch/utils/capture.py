@@ -29,9 +29,17 @@ def substep_problem(cfg, model, subs, n: int, h: float, dev, seed: int = 0):
     first substep after a reset of `n` envs with a hold-still control."""
     with torch.no_grad():
         state = insertion.reset_all(cfg, model, subs, insertion.make_generator(seed, dev), n)
-        ctrl = engine.ControlInput(q_target=state.phys.q, tau_cmd=torch.zeros_like(state.phys.q),
-                                   torque_mode_mask=torch.zeros((15,), device=dev),
-                                   plug_wrench=torch.zeros((n, 6), device=dev))
+    return contact_problem_of(model, state, h)
+
+
+def contact_problem_of(model, state, h: float):
+    """The contact solver's arguments on the next substep of an env state
+    under a hold-still control."""
+    q = state.phys.q
+    with torch.no_grad():
+        ctrl = engine.ControlInput(q_target=q, tau_cmd=torch.zeros_like(q),
+                                   torque_mode_mask=torch.zeros((15,), device=q.device),
+                                   plug_wrench=torch.zeros((q.shape[0], 6), device=q.device))
         return engine.contact_problem(model, state.params, state.phys, ctrl, h)
 
 

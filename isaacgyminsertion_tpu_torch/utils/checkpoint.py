@@ -67,14 +67,14 @@ class Checkpointer:
         self.best_reward = float("-inf")
         self.best_success = float("-inf")
 
-    def _save(self, name: str, tree: Any):
+    def save(self, name: str, tree: Any):
         path = os.path.join(self.out_dir, name + ".ckpt")
         with open(path + ".tmp", "wb") as f:
             pickle.dump(_to_host(tree), f)
         os.replace(path + ".tmp", path)  # atomic: a reader never sees a partial file
 
     def save_last(self, tree: Any, step: int):
-        self._save("last", tree)
+        self.save("last", tree)
         with open(os.path.join(self.out_dir, "last_step.json"), "w") as f:
             json.dump({"step": int(step)}, f)
 
@@ -83,11 +83,11 @@ class Checkpointer:
         saved = []
         if reward > self.best_reward:
             self.best_reward = reward
-            self._save("best_reward", tree)
+            self.save("best_reward", tree)
             saved.append("best_reward")
         if success > self.best_success:
             self.best_success = success
-            self._save("best_success", tree)
+            self.save("best_success", tree)
             saved.append("best_success")
         return saved
 

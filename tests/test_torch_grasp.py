@@ -163,13 +163,12 @@ def test_forward_kinematics_jump_matches_the_serial_walk(world):
 def test_grasp_task_and_training_cli_take_the_dataset(grasp_file, tmp_path):
     """`vec_env.make("FactoryTaskGraspTactile")` writes a dataset; the PPO
     training CLI parses `grasp_dataset=` and trains one epoch on the CPU with
-    resets from it; `FactoryTaskOptimizeTactile` stays refused."""
+    resets from it; `FactoryTaskOptimizeTactile` builds the sys-id task."""
     task = vec_env.make("FactoryTaskGraspTactile", num_envs=2, device="cpu")
     n = task.run(n_rounds=1, out_path=str(tmp_path / "g.npz"), settle_steps=2)
     with np.load(tmp_path / "g.npz") as d:
         assert d["sub_idx"].shape == (n,)
-    with pytest.raises(NotImplementedError, match="sysid"):
-        vec_env.make("FactoryTaskOptimizeTactile")
+    assert isinstance(vec_env.make("FactoryTaskOptimizeTactile", device="cpu"), vec_env.SysIdTask)
     path, _ = grasp_file
     argv = ["train.algo=PPO", "test=False", f"grasp_dataset={path}", "num_envs=2",
             "train.ppo.horizon_length=2", "train.ppo.mini_epochs=1", "max_epochs=1", "seed=0",

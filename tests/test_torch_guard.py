@@ -1,9 +1,11 @@
 """The port stands alone: no module of isaacgyminsertion_tpu_torch/, and not
-chip_smoke.py, imports jax or the JAX package; its entry points refuse to run
-on the CPU unless asked; its CLI trains and evaluates the teacher and the
-student, collects rotating-plug frames, and refuses the grasp-dataset resets
-and the CycleGAN generator; its kernels have no quiet fall-back; its native
-trajectory writer builds into the package's `_build/` only."""
+chip_smoke.py, imports jax or the JAX package; its entry points (the CLI,
+sys-id, PBT, the deploy simulator and the kinematic arm among them) refuse to
+run on the CPU unless asked; its CLI trains and evaluates the teacher and the
+student, collects rotating-plug frames, and reaches the device check with the
+grasp-dataset resets and the CycleGAN generator; its kernels have no quiet
+fall-back; its native trajectory writer and transport codec build into the
+package's `_build/` only."""
 
 import ast
 import os
@@ -53,7 +55,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "algo/ext_adapt.py", "utils/cuda_build.py", "algo/ppo.py", "utils/metrics.py",
                    "envs/vec_env.py", "native/__init__.py", "data/dataset.py", "data/logger.py",
                    "data/data_io.py", "algo/collect.py", "algo/offline_runner.py",
-                   "algo/tactile_runner.py", "train_supervised.py", "utils/host_build.py"):
+                   "algo/tactile_runner.py", "train_supervised.py", "utils/host_build.py", "sysid.py",
+                   "pbt/pbt.py", "pbt/mutation.py", "pbt/driver.py", "pbt/run.py", "deploy/calib.py",
+                   "deploy/transport.py", "deploy/hardware_player.py", "deploy/devices.py"):
         assert any(p.endswith(os.path.join(PORT, module)) for p in sources), module
     for path in sources:
         tree = ast.parse(open(path).read(), filename=path)
@@ -70,11 +74,26 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not found, found
 
 
-def test_entry_points_do_not_fall_back_to_the_cpu():
+def test_entry_points_do_not_fall_back_to_the_cpu(tmp_path):
+    """resolve_device, and the entry points of sys-id, PBT and the deploy
+    stack: without a GPU and without a CPU request they raise."""
+    from isaacgyminsertion_tpu_torch import sysid
+    from isaacgyminsertion_tpu_torch.deploy.devices import KinematicArm
+    from isaacgyminsertion_tpu_torch.deploy.hardware_player import SimInterface
+    from isaacgyminsertion_tpu_torch.envs.config import default_task_config
+    from isaacgyminsertion_tpu_torch.pbt import run as pbt_run
+
     assert resolve_device("cpu") == torch.device("cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             resolve_device(None)
+        for call in (lambda: sysid.main(["--traj", str(tmp_path / "rec.npz")]),
+                     lambda: pbt_run.main({"WORKSPACE": str(tmp_path / "pbt")}),
+                     lambda: SimInterface(default_task_config()),
+                     lambda: KinematicArm()):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+        assert not os.path.exists(tmp_path / "pbt")
 
 
 def test_cli_runs_only_the_teacher_eval(tmp_path):
@@ -232,9 +251,9 @@ def test_kernel_wrappers_dispatch_by_device_without_a_fallback():
 
 
 def test_sensor_flags_are_refused():
-    """The sensor flags are served since the sensors-on slice, and the
-    CycleGAN sim→real hook on tactile frames runs; what is still refused is
-    the sys-id task."""
+    """Nothing is refused any more: the sensor flags are served since the
+    sensors-on slice, the CycleGAN sim→real hook on tactile frames runs, and
+    `vec_env.make` builds the sys-id task on the device asked for."""
     from isaacgyminsertion_tpu_torch.assets import build_subassembly_set
     from isaacgyminsertion_tpu_torch.envs import insertion
     from isaacgyminsertion_tpu_torch.envs import vec_env
@@ -251,8 +270,11 @@ def test_sensor_flags_are_refused():
         gan = zoo.init_like_flax(zoo.ResnetGenerator(), torch.Generator().manual_seed(0)).eval()
         state, out = insertion.step(cfg, model, subs, state, torch.zeros((2, 6)), gen, gan=gan)
         assert tuple(out.tactile.shape) == (2, 1, 3, 64, 64, 3) and bool(torch.isfinite(out.tactile).all())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        vec_env.make("FactoryTaskOptimizeTactile")
+    task = vec_env.make("FactoryTaskOptimizeTactile", device="cpu")
+    assert isinstance(task, vec_env.SysIdTask) and task.device == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            vec_env.make("FactoryTaskOptimizeTactile")
 
 
 def test_data_entry_points_run_only_on_the_device_asked_for(tmp_path):
@@ -297,5 +319,36 @@ def test_native_writer_builds_into_the_package_build_dir_only():
     assert os.path.basename(native.LIB_PATH).startswith("libtrajlog_")
     assert host_build.build_shared("trajlog", native.SOURCE, libs=("z",)) == native.LIB_PATH
     after = {d: sorted(os.listdir(d)) for d in (native_dir, jax_native)}
-    assert after == before and set(after[native_dir]) - {"__pycache__"} == {"__init__.py", "trajlog.cpp"}
+    assert after == before and set(after[native_dir]) - {"__pycache__"} == {"__init__.py", "trajlog.cpp",
+                                                                              "hwbridge.cpp"}
+    assert stamps == {f: os.stat(os.path.join(jax_native, f)).st_mtime_ns for f in after[jax_native]}
+
+
+def test_transport_codec_builds_into_the_package_build_dir_only(monkeypatch, capsys):
+    """hwbridge.cpp is compiled into isaacgyminsertion_tpu_torch/_build/ under
+    a name hashed from its source and flags; nothing is written beside the
+    source, the JAX package's library is never the one loaded, and the module
+    says which codec it took."""
+    from isaacgyminsertion_tpu_torch.deploy import transport
+    from isaacgyminsertion_tpu_torch.utils import host_build
+
+    native_dir = os.path.join(ROOT, PORT, "native")
+    jax_native = os.path.join(ROOT, "isaacgyminsertion_tpu", "native")
+    before = {d: sorted(os.listdir(d)) for d in (native_dir, jax_native)}
+    stamps = {f: os.stat(os.path.join(jax_native, f)).st_mtime_ns for f in before[jax_native]}
+    monkeypatch.setattr(transport, "_native_tried", False)
+    monkeypatch.setattr(transport, "_native", None)
+    lib = transport._load_native()
+    assert capsys.readouterr().out.startswith(f"transport: codec {transport.CODEC} (")
+    if lib is None:
+        assert transport.CODEC == "python" and "unavailable" in transport.CODEC_NOTE
+        pytest.skip(f"g++ unavailable: {transport.CODEC_NOTE}")
+    assert transport.CODEC == "native" and transport.SOURCE == os.path.join(
+        os.path.realpath(native_dir), "hwbridge.cpp")
+    build_dir = os.path.realpath(os.path.join(ROOT, PORT, "_build"))
+    assert os.path.dirname(os.path.realpath(transport.CODEC_NOTE)) == build_dir
+    assert os.path.basename(transport.CODEC_NOTE).startswith("libhwbridge_")
+    assert host_build.build_shared("hwbridge", transport.SOURCE) == transport.CODEC_NOTE
+    after = {d: sorted(os.listdir(d)) for d in (native_dir, jax_native)}
+    assert after == before
     assert stamps == {f: os.stat(os.path.join(jax_native, f)).st_mtime_ns for f in after[jax_native]}

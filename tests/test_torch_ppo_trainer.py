@@ -124,8 +124,7 @@ def test_vec_env_object_api(world):
     obs, rew, reset, extras = env.step(np.zeros((2, env.num_actions), np.float32))
     assert tuple(rew.shape) == (2,) and bool(torch.isfinite(obs["obs"]).all())
     assert "time_outs" in extras and "successes" in extras
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        vec_env.make("FactoryTaskOptimizeTactile")
+    assert isinstance(vec_env.make("FactoryTaskOptimizeTactile", device="cpu"), vec_env.SysIdTask)
     assert isinstance(vec_env.make("FactoryTaskGraspTactile", num_envs=2, device="cpu"), vec_env.GraspGenTask)
     with pytest.raises(KeyError):
         vec_env.make("NoSuchTask")
