@@ -6,7 +6,7 @@
 
 Any failure exits nonzero without printing a result. Phases 1-3 and 7 run
 first, in this process, alone on the card. The main paths (phases 4-6 and
-8-16) then run as worker processes of this script (`--unit`), UNIT_SLOTS at
+8-17) then run as worker processes of this script (`--unit`), UNIT_SLOTS at
 a time: UNITS groups them, a unit starts once the units whose files it reads
 have ended, and each unit's output is printed when it ends. The phases:
   1. device and precision: CUDA present, card name and power limit, TF32 off;
@@ -20,6 +20,9 @@ have ended, and each unit's output is printed when it ends. The phases:
        student training path's; then edge cases at C = 255, 37 and 200: an
        env with no active contact, an env with every contact active, C not a
        multiple of 32; all at the reference's fused-vs-XLA solver tolerances;
+       phase 17's grids: a substep at one rank's 4096 envs of the sharded
+       training, and one at one rank's 256 envs of the sensors-on sharded
+       epoch on the dry run's reduced config (4 iterations, h = 1/60 s);
      - tactile_render (R = 768 rows × 4096 pixels) and camera_render (N = 256
        envs × 5184 pixels), closed-form variant: inputs captured from a
        sensors-on env a few steps after reset, and one random set; the march
@@ -35,6 +38,11 @@ have ended, and each unit's output is printed when it ends. The phases:
      - the deploy path's grid, from 1-env SimInterfaces three steps after
        reset: the solver at N = 1, and on student_r3's flags the tactile
        renderer at R = 3 rows and the camera at N = 1, at the tolerances above;
+     - the sharded sensors-on path's grid (phase 17 (c)): the rows each of two
+       ranks of 256 envs owns of the global selection at render_capacity 0.75
+       (render_selection over the gathered priorities, at a step where both
+       counts are odd), both renderers on those rows of the sensors-on env,
+       at the tolerances above;
   4. main path, teacher: the teacher eval CLI with the banked r2b teacher at
      1024 envs for one 500-step episode (3 solver launches per control step,
      success must reach 0.5);
@@ -153,7 +161,34 @@ have ended, and each unit's output is printed when it ends. The phases:
      steps each; (e) calibrate_deploy_scales against (a)'s trail, 6 trials x
      20 steps: exactly 360 solver launches, a finite best loss; (f) a
      CompositeEnv on a CUDA KinematicArm servoed 60 steps along +x, and
-     SafetyLimits clamping a step into the workspace's wall.
+     SafetyLimits clamping a step into the workspace's wall;
+ 17. data parallelism and the utilities, as two units (the first holds two
+     rank processes on the card and takes two of UNIT_SLOTS): (a)
+     `parallel.dryrun`'s rank function on two gloo ranks sharing the card,
+     2 x 4096 envs, train_s1.sh's hyperparameters, 1 epoch: exactly 192
+     solver launches a rank and no renderer launch, 524,288 agent steps,
+     finite losses, and the ranks' parameters, Adam moments and normalizers
+     bitwise equal; its env-steps/s summed over the ranks is printed beside
+     phase 8's; (c) on the same ranks the sensors-on epoch at 2 x 256 envs,
+     render_capacity 0.75, 8 steps (1 substep, 4 solver iterations): each
+     step the rows the ranks render sum to the global k, each rank's tactile
+     and camera launches equal its steps with rows to render, every frame
+     finite and in range; then the dry run's entry point (the reference's two
+     epochs at 8 envs); (b) nccl at world size 1, 512 envs, 1 epoch: exactly
+     192 solver launches. (d) PPOTrainer.record_video with the r2b teacher
+     restored, 1 env x 150 steps: exactly 450 solver and 150 camera
+     launches, 150 finite depth frames handed to the encoder for the
+     trainer's videos/ directory, the GIF and PNG (where imageio and
+     matplotlib are not installed the encoder keeps the arrays, writes no
+     file, and the phase says so);
+     (e) check_determinism of one env step at 1024 envs, the largest
+     difference of that step in a worker thread against the main thread,
+     and a profiling.trace of 3 control steps; (f) export_scene_usda of the
+     1024-env state and PoseExtractor over 3 steps, RandomNetworkAdversary
+     on 8192 x 6 actions; (g) EkiIiwaArm on a CUDA KinematicArm against a
+     fake controller on loopback: 60 servo steps along +x, the reference's
+     wire format, and each real driver's DriverUnavailable reason where its
+     SDK is missing.
 Phase 3 prints the random solver set's error beside the worst error relative
 to |plain|, the largest |plain| and the share of SOLVER_TOL it uses: the set
 drives some envs to huge impulses, where the absolute error is large.
@@ -263,6 +298,10 @@ PBT_LOG_KEYS = {"interval", "policy", "objective", "hparams", "replaced", "agent
 DEPLOY_STEPS, STUDENT_DEPLOY_STEPS, LOOPBACK_STEPS, AUX_DEPLOY_STEPS = 100, 30, 30, 16
 CALIB_TRIALS, CALIB_STEPS = 6, 20
 ARM_STEPS, ARM_DX = 60, 0.002
+# phase 17: data-parallel PPO (train_s1.sh's hyperparameters) on two gloo ranks sharing the card,
+# the sensors-on epoch at render_capacity 0.75, nccl at world size 1; the utilities
+SHARD_ENVS, SHARD_SENSOR_ENVS, SHARD_SENSOR_STEPS, NCCL_ENVS = 8192, 512, 8, 512
+VIDEO_STEPS, DET_ENVS, TRACE_STEPS, RNA_ROWS = 150, 1024, 3, 8192
 
 
 def stand_in_real(frames):
@@ -361,8 +400,9 @@ def _check_noise(name, noisy, clean):
     return mean, std
 
 
-def _train(cli, counts_zero, counts, substeps, out_dir):
-    """Phase 8: PPO teacher training through the CLI → the launch counts of its run."""
+def _train(cli, counts_zero, counts, substeps, out_dir, extra):
+    """Phase 8: PPO teacher training through the CLI → the launch counts of its
+    run; each epoch's env-steps/s goes to `extra["train_fps"]`."""
     import torch
 
     epochs_args = [f"num_envs={TRAIN_ENVS}", f"max_epochs={TRAIN_EPOCHS}", "seed=0", f"output={out_dir}",
@@ -386,6 +426,7 @@ def _train(cli, counts_zero, counts, substeps, out_dir):
     if trainer.state.agent_steps != TRAIN_ENVS * steps:
         raise PhaseError(f"agent_steps {trainer.state.agent_steps}, expected {TRAIN_ENVS * steps}")
     rows = _epoch_rows(out_dir, TRAIN_EPOCHS, ("loss", "a_loss", "c_loss", "kl", "info/param_norm"))
+    extra["train_fps"] = [r["performance/EnvStepFPS"] for r in rows]
     for i, r in enumerate(rows):
         print(f"training epoch {i + 1}: EnvStepFPS {r['performance/EnvStepFPS']:.1f} env-steps/s, "
               f"rollout {r['time/rollout_s']:.2f} s, update {r['time/update_s']:.2f} s (advantages "
@@ -1276,6 +1317,304 @@ def _deploy_path(cli, counts_zero, counts, substeps, work):
     return out
 
 
+def _sharded_path(x):
+    """Phase 17 (a)-(c): data-parallel PPO through `parallel.dryrun`'s rank
+    function → {path: launch counts summed over the ranks}."""
+    import torch
+
+    from isaacgyminsertion_tpu_torch.envs import insertion
+    from isaacgyminsertion_tpu_torch.parallel import dryrun
+
+    out = {}
+
+    def spawn(label, world, backend, specs):
+        t0 = time.perf_counter()
+        results = dryrun.spawn(world, backend, None, specs)
+        print(f"{label}: {world} rank(s), {backend}, {time.perf_counter() - t0:.2f} s with the ranks' start",
+              flush=True)
+        return results
+
+    def summed(runs):
+        return {k: sum(r["counts"][k] for r in runs) for k in runs[0]["counts"]}
+
+    # (a) and (c): one gloo group of two ranks sharing the card
+    train_spec = dryrun.RunSpec(n_envs=SHARD_ENVS, horizon=64, mini_epochs=8, reduced=False, seed=0)
+    sensor_spec = dryrun.RunSpec(n_envs=SHARD_SENSOR_ENVS, horizon=SHARD_SENSOR_STEPS, sensors=True, seed=1)
+    results = spawn("sharded teacher training and the sensors-on epoch", 2, "gloo", [train_spec, sensor_spec])
+    runs = [r[0] for r in results]
+    m = dryrun.check(results, 0)
+    want = dict(contact_solver=3 * train_spec.horizon, tactile_render=0, camera_render=0)
+    fps = sum(r["env_steps_per_s"] for r in runs)
+    x.extra["sharded_fps"] = fps
+    print(f"main path: sharded teacher training (train_s1.sh: horizon 64, 8 mini-epochs), 2 gloo ranks x "
+          f"{SHARD_ENVS // 2} envs on one card, 1 epoch: {[round(r['secs'], 2) for r in runs]} s (rollout "
+          f"{m['time/rollout_s']:.2f} s, update {m['time/update_s']:.2f} s on rank 0), "
+          f"{fps:.1f} env-steps/s summed over the ranks, launches by rank {[r['counts'] for r in runs]}, "
+          f"agent_steps {runs[0]['agent_steps']}, loss {m['loss']:.4f}, kl {m['kl']:.5f}, reward "
+          f"{m['episode/reward']:.4f}; parameters, Adam moments and normalizers bitwise equal on both ranks "
+          f"(sha256 {runs[0]['digest'][:16]})", flush=True)
+    if any(r["counts"] != want for r in runs):
+        raise PhaseError(f"sharded training launches {[r['counts'] for r in runs]}, expected {want} a rank")
+    if any(r["agent_steps"] != SHARD_ENVS * train_spec.horizon for r in runs):
+        raise PhaseError(f"sharded agent_steps {[r['agent_steps'] for r in runs]}")
+    if not all(math.isfinite(m[k]) for k in ("loss", "a_loss", "c_loss", "kl")):
+        raise PhaseError(f"sharded training losses not finite: {m}")
+    out["sharded training"] = summed(runs)
+
+    runs = [r[1] for r in results]
+    m = dryrun.check(results, 1)
+    k = insertion.render_count(SHARD_SENSOR_ENVS, 0.75)
+    rows = np.asarray([r["render_rows"] for r in runs])        # [rank, step, (tactile, camera)]
+    drawn = (rows > 0).sum(axis=1)                             # steps each rank rendered, per renderer
+    print(f"main path: sensors-on epoch, 2 gloo ranks x {SHARD_SENSOR_ENVS // 2} envs, render_capacity 0.75 "
+          f"(k = {k}): rows rendered by rank and step, tactile {rows[:, :, 0].tolist()}, camera "
+          f"{rows[:, :, 1].tolist()}; launches by rank {[r['counts'] for r in runs]}; frames "
+          f"{runs[0]['frames']}; loss {m['loss']:.4f}, render overflow {m['episode/render_overflow']:.1f}",
+          flush=True)
+    if not (rows.sum(axis=0) == k).all():
+        raise PhaseError(f"the ranks' rendered rows do not sum to k = {k} each step: {rows.tolist()}")
+    for r, d in zip(runs, drawn):
+        want = dict(contact_solver=SHARD_SENSOR_STEPS, tactile_render=int(d[0]), camera_render=int(d[1]))
+        if r["counts"] != want:
+            raise PhaseError(f"sensors-on rank {r['rank']}: launches {r['counts']}, expected {want}")
+        for name, (lo, hi, finite) in r["frames"].items():
+            bound = dryrun.SENSOR_QUEUES[name]
+            if not finite or lo < bound[0] or hi > bound[1]:
+                raise PhaseError(f"sensors-on rank {r['rank']}: {name} in [{lo}, {hi}] (finite {finite})")
+    out["sharded sensors-on epoch"] = summed(runs)
+
+    # the dry run's own entry point: the reference's two epochs at 8 envs
+    t0 = time.perf_counter()
+    results = dryrun.dryrun(2, "gloo")
+    print(f"dryrun entry point: {time.perf_counter() - t0:.2f} s", flush=True)
+    out["dryrun"] = {k: sum(summed([r[i] for r in results])[k] for i in range(2))
+                     for k in ("contact_solver", "tactile_render", "camera_render")}
+
+    # (b) NCCL at world size 1
+    nccl_spec = dryrun.RunSpec(n_envs=NCCL_ENVS, horizon=64, mini_epochs=8, reduced=False, seed=2)
+    results = spawn("nccl", 1, "nccl", [nccl_spec])
+    run, m = results[0][0], dryrun.check(results, 0)
+    print(f"main path: nccl at world size 1, {NCCL_ENVS} envs, 1 epoch: {run['secs']:.2f} s, "
+          f"{run['env_steps_per_s']:.1f} env-steps/s, launches {run['counts']}, loss {m['loss']:.4f}",
+          flush=True)
+    want = dict(contact_solver=3 * nccl_spec.horizon, tactile_render=0, camera_render=0)
+    if run["counts"] != want or not math.isfinite(m["loss"]):
+        raise PhaseError(f"nccl: launches {run['counts']} (expected {want}), loss {m['loss']}")
+    out["nccl"] = run["counts"]
+    torch.cuda.synchronize()
+    return out
+
+
+def _utilities_path(x):
+    """Phase 17 (d)-(g): the rollout video, determinism and the profiler,
+    the scene export and RNA, the EKI arm → {path: launch counts}."""
+    import importlib.util
+    import re
+    import socket
+    import threading
+
+    import torch
+
+    from isaacgyminsertion_tpu_torch.algo import ppo as ppo_mod
+    from isaacgyminsertion_tpu_torch.algo.trainer import PPOTrainer
+    from isaacgyminsertion_tpu_torch.assets import build_subassembly_set
+    from isaacgyminsertion_tpu_torch.deploy import drivers
+    from isaacgyminsertion_tpu_torch.envs import insertion
+    from isaacgyminsertion_tpu_torch.envs.config import default_task_config
+    from isaacgyminsertion_tpu_torch.physics.kinematics import forward_kinematics
+    from isaacgyminsertion_tpu_torch.physics.robot import build_kuka_openhand
+    from isaacgyminsertion_tpu_torch.utils import profiling, rna, scene_export, video
+
+    dev = torch.device("cuda")
+    cfg, model, subs = default_task_config(), build_kuka_openhand(), build_subassembly_set()
+    out = {}
+
+    def run(label, fn):
+        x.counts_zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[label] = x.counts()
+        return r, time.perf_counter() - t0
+
+    # (d) the rollout video of the restored r2b teacher, one env
+    # record_video runs whole; where imageio or matplotlib is missing, its last step (the
+    # encoding, write_eval_video) only keeps what it is handed
+    trainer = PPOTrainer(cfg, ppo_mod.PPOConfig(), model, subs, 1, _in(x.work, "video"), device=dev)
+    trainer.restore(CHECKPOINT)
+    encoders = [m for m in ("imageio", "matplotlib") if importlib.util.find_spec(m) is None]
+    handed, write = {}, video.write_eval_video
+
+    def keep_then_write(frames, actions, forces, out_dir):
+        handed.update(frames=frames, actions=actions, forces=forces, out_dir=out_dir)
+        if encoders:
+            return []
+        return write(frames, actions, forces, out_dir)
+
+    video.write_eval_video = keep_then_write
+    try:
+        paths, secs = run("video", lambda: trainer.record_video(n_steps=VIDEO_STEPS))
+    finally:
+        video.write_eval_video = write
+    if encoders:
+        print(f"video: {' and '.join(encoders)} not installed on this machine: record_video captured the "
+              f"rollout and handed it to write_eval_video, which encoded no file", flush=True)
+    else:
+        sizes = {os.path.basename(p): os.path.getsize(p) for p in paths}
+        print(f"video: wrote {sizes} bytes", flush=True)
+        if sorted(sizes) != ["rollout.gif", "traces.png"] or not all(sizes.values()):
+            raise PhaseError(f"record_video wrote {sizes}")
+    frames, forces = handed["frames"], handed["forces"]
+    want_dir = os.path.join(trainer.ckpt.out_dir, "videos")
+    want = dict(contact_solver=x.substeps * VIDEO_STEPS, tactile_render=0, camera_render=VIDEO_STEPS)
+    print(f"main path: PPOTrainer.record_video, r2b restored, 1 env x {VIDEO_STEPS} steps: {secs:.2f} s, "
+          f"launches {out['video']}; depth frames {frames.shape} in [{frames.min():.4f}, {frames.max():.4f}], "
+          f"handed to the encoder for {handed['out_dir']}", flush=True)
+    if out["video"] != want or not np.isfinite(frames).all() or not np.isfinite(forces).all():
+        raise PhaseError(f"video: launches {out['video']} (expected {want}) or a frame not finite")
+    if frames.shape[0] != VIDEO_STEPS or handed["out_dir"] != want_dir:
+        raise PhaseError(f"video: {frames.shape[0]} frames for {handed['out_dir']}, expected "
+                         f"{VIDEO_STEPS} for {want_dir}")
+    del trainer
+
+    # (e) determinism of one env step at 1024 envs; the same step in a worker thread; a trace
+    with torch.no_grad():
+        state = insertion.reset_all(cfg, model, subs, insertion.make_generator(0, dev), DET_ENVS)
+        acts = 0.5 * torch.ones((DET_ENVS, 6), device=dev)
+        step = lambda: insertion.step(cfg, model, subs, state, acts, insertion.make_generator(1, dev))
+        same, _ = run("determinism", lambda: profiling.check_determinism(step))
+        main_out = list(profiling.leaves(step()))
+        box = []
+        worker = threading.Thread(target=lambda: box.append(list(profiling.leaves(step()))))
+        worker.start()
+        worker.join(timeout=120)
+        if worker.is_alive() or not box:
+            raise PhaseError("the env step in a worker thread did not finish")
+        diff = max((float((a.double() - b.double()).abs().max()) if isinstance(a, torch.Tensor)
+                    and a.is_floating_point() and a.numel() else 0.0) for a, b in zip(main_out, box[0]))
+        print(f"determinism: one env step at {DET_ENVS} envs, run twice from the same state: bitwise equal "
+              f"{same}; the same step in a worker thread against the main thread: largest difference "
+              f"{diff:.3e}", flush=True)
+        if not same:
+            raise PhaseError("the env step is not deterministic on the card")
+        trace_dir = _in(x.work, "trace")
+        (path, secs) = run("trace", lambda: _traced_steps(profiling, insertion, cfg, model, subs, state, acts,
+                                                          trace_dir))
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        print(f"trace: {TRACE_STEPS} control steps at {DET_ENVS} envs -> {os.path.getsize(path)} bytes, "
+              f"{len(events)} events, {kernels} device kernel events, {secs:.2f} s", flush=True)
+        if not os.path.getsize(path) or not events:
+            raise PhaseError(f"profiling.trace wrote an empty trace: {path}")
+
+        # (f) the scene export and the pose extractor on the card state, RNA on 8192 actions
+        usda = scene_export.export_scene_usda(cfg, model, subs, state, os.path.join(x.work, "scene.usda"))
+        poses = scene_export.PoseExtractor(model)
+        s = state
+        for _ in range(3):
+            s, _ = insertion.step(cfg, model, subs, s, acts, insertion.make_generator(2, dev))
+            poses.record(s, env=5)
+        poses.save(_in(x.work, "poses"))
+        pos, rotq = np.stack(poses.positions), np.stack(poses.rotations)
+        nb = forward_kinematics(model, s.phys.q[:1]).body_t.shape[-2]
+        text = open(usda).read()
+        print(f"scene export: {len(text)} bytes of USDA ({text.count('def ')} prims); poses "
+              f"{pos.shape} / {rotq.shape}, finite {bool(np.isfinite(pos).all() and np.isfinite(rotq).all())}",
+              flush=True)
+        if (pos.shape != (3, nb + 1, 3) or rotq.shape != (3, nb + 1, 4) or not np.isfinite(pos).all()
+                or not np.isfinite(rotq).all() or 'def Xform "plug"' not in text):
+            raise PhaseError(f"scene export or poses malformed: {pos.shape}, {rotq.shape}")
+        adv = rna.RandomNetworkAdversary(obs_dim=15).to(dev)
+        obs = torch.randn((RNA_ROWS, 15), generator=insertion.make_generator(3, dev), device=dev)
+        a = torch.rand((RNA_ROWS, 6), generator=insertion.make_generator(4, dev), device=dev) * 2 - 1
+        pert = adv.perturb(insertion.make_generator(5, dev), obs, a)
+        moved = float((pert - a).abs().max())
+        print(f"rna: perturb {RNA_ROWS} x 6 actions on {pert.device}: in [{float(pert.min()):.4f}, "
+              f"{float(pert.max()):.4f}], largest change {moved:.4f}", flush=True)
+        if not bool(torch.isfinite(pert).all()) or float(pert.abs().max()) > 1.0 or moved == 0.0:
+            raise PhaseError("rna: a perturbed action is not finite, leaves [-1, 1], or none moved")
+    del state, s
+
+    # (g) the EKI arm on a CUDA KinematicArm against a fake controller on loopback
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    srv.settimeout(30.0)
+    wire = []
+    ctrl = threading.Thread(target=_eki_echo, args=(srv, wire, ARM_STEPS), daemon=True)
+    ctrl.start()
+    arm = drivers.EkiIiwaArm("127.0.0.1", port=srv.getsockname()[1])
+    try:
+        p0 = arm._read()["ee_pos"].copy()
+        _, secs = run("eki arm", lambda: [arm.servo_delta(np.array([ARM_DX, 0.0, 0.0]), np.zeros(3))
+                                          for _ in range(ARM_STEPS)])
+        d = arm._read()["ee_pos"] - p0
+    finally:
+        ctrl.join(timeout=30)
+        arm.stop()
+        srv.close()
+    pattern = re.compile(rb'<RobotCommand><Joints( A[1-7]="-?\d+\.\d{6}"){7}/></RobotCommand>')
+    fmt = all(pattern.fullmatch(w) for w in wire)
+    print(f"eki arm on {arm.device}: {ARM_STEPS} servo steps of {ARM_DX} m along +x over loopback in "
+          f"{secs:.3f} s: the measured eef moved {[round(float(v), 5) for v in d]} m; {len(wire)} commands, "
+          f"each in the reference's wire format {fmt}", flush=True)
+    if arm.device.type != "cuda" or len(wire) != ARM_STEPS or not fmt or ctrl.is_alive():
+        raise PhaseError(f"eki arm: device {arm.device}, {len(wire)} commands, format {fmt}")
+    if not (d[0] > 0.5 * ARM_STEPS * ARM_DX and abs(d[1]) < 0.25 * d[0] and abs(d[2]) < 0.25 * d[0]):
+        raise PhaseError(f"the EKI arm did not follow +x: {d}")
+    for name, make in (("ZedCamera", drivers.ZedCamera), ("SerialOpenhand", drivers.SerialOpenhand),
+                       ("UsbAllsight", drivers.UsbAllsight),
+                       ("ApriltagTracker", lambda: drivers.ApriltagTracker(frame_fn=lambda: None)),
+                       ("SegTracker", drivers.SegTracker)):
+        try:
+            dev_ = make()
+            print(f"driver {name}: constructed (its SDK is installed)", flush=True)
+            stop = getattr(dev_, "stop", None)
+            if stop is not None:
+                stop()
+        except drivers.DriverUnavailable as e:
+            print(f"driver {name}: DriverUnavailable: {e}", flush=True)
+    return out
+
+
+def _traced_steps(profiling, insertion, cfg, model, subs, state, acts, trace_dir):
+    """TRACE_STEPS control steps inside `profiling.trace` → the trace's path."""
+    import torch
+
+    gen = insertion.make_generator(6, state.phys.q.device)
+    with profiling.trace(trace_dir) as path:
+        for _ in range(TRACE_STEPS):
+            state, _ = insertion.step(cfg, model, subs, state, acts, gen)
+        torch.cuda.synchronize()
+    return path
+
+
+def _eki_echo(srv, wire, n):
+    """A fake EKI controller: each command's joints echoed back as the
+    measured state, its line kept in `wire`."""
+    import xml.etree.ElementTree as ET
+
+    conn, _ = srv.accept()
+    conn.settimeout(30.0)
+    buf = b""
+    try:
+        for _ in range(n):
+            while b"\n" not in buf:
+                chunk = conn.recv(4096)
+                if not chunk:
+                    return
+                buf += chunk
+            line, buf = buf.split(b"\n", 1)
+            wire.append(line)
+            j = ET.fromstring(line.decode()).find("Joints").attrib
+            conn.sendall(("<RobotState><Joints " + " ".join(f'A{i}="{j[f"A{i}"]}"' for i in range(1, 8))
+                          + '/><Wrench Fx="0" Fy="0" Fz="0" Tx="0" Ty="0" Tz="0"/></RobotState>\n').encode())
+    finally:
+        conn.close()
+
+
 def _eval(cli, counts_zero, counts, label, argv, n, steps):
     """One eval through the CLI → (success, launch counts)."""
     import torch
@@ -1364,7 +1703,8 @@ PHASES = {
     "4": _teacher_eval,
     "5": _r5_eval,
     "6": _r3_eval,
-    "8": lambda x: {"training": _train(x.cli, x.counts_zero, x.counts, x.substeps, _in(x.work, "train"))},
+    "8": lambda x: {"training": _train(x.cli, x.counts_zero, x.counts, x.substeps, _in(x.work, "train"),
+                                       x.extra)},
     "9": lambda x: {"student training": _train_student(x.cli, x.counts_zero, x.counts, x.substeps,
                                                        _in(x.work, "student"))},
     "9b": lambda x: {"student training, tactile": _train_student_tactile(
@@ -1381,26 +1721,33 @@ PHASES = {
     "15": lambda x: _two(("pbt", "pbt export eval"), _pbt_path(x.cli, x.counts_zero, x.counts, x.substeps,
                                                                x.work)),
     "16": lambda x: _deploy_path(x.cli, x.counts_zero, x.counts, x.substeps, x.work),
+    "17": _sharded_path,
+    "17d": _utilities_path,
 }
 # The main paths run as worker processes of this script (--unit), UNIT_SLOTS at a time
 # on the one card. Each is bound by the host (one Python thread issues every op of a
 # control step and the card idles ~90% of it), so several processes share the card.
 # A unit is a few phases in one process; it starts once the units whose files it
 # reads have ended. The scheduler prefers the units in this order: the collection and
-# what reads it first, since they are the longest chain.
+# what reads it first, since they are the longest chain; the two-slot unit next, so that
+# it starts while the card still has two slots free.
 UNITS = {
     "collection": (("10",), ()),
     "replay": (("10 replay",), ("collection",)),
     "diffusion and deploy": (("13", "16"), ("collection", "rotating plug and CycleGAN")),
     "rotating plug and CycleGAN": (("10b", "12"), ()),
+    "sharded training": (("17",), ()),
     "student training": (("9", "9b"), ()),
     "pbt": (("15",), ()),
     "student_r3 eval": (("6",), ()),
     "teacher eval": (("4",), ()),
     "student_r5 eval": (("5",), ()),
     "teacher training, grasp resets, sys-id": (("8", "11", "14"), ()),
+    "utilities and drivers": (("17d",), ()),
 }
 UNIT_SLOTS = 4
+# a unit that holds more than one process on the card takes as many slots
+UNIT_WEIGHT = {"sharded training": 2}
 
 
 def _counters():
@@ -1483,7 +1830,8 @@ def _run_units(work):
     try:
         while pending or running:
             for name in [n for n in pending if all(d in done for d in UNITS[n][1])]:
-                if len(running) >= UNIT_SLOTS:
+                used = sum(UNIT_WEIGHT.get(n, 1) for n in running)
+                if used + UNIT_WEIGHT.get(name, 1) > UNIT_SLOTS:
                     break
                 stem = os.path.join(work, "units", name.replace(" ", "_").replace(",", ""))
                 log = open(stem + ".log", "w")
@@ -1568,10 +1916,10 @@ def main():
         mass, I_inv, v, w, cs = sk.random_problem(n, c, seed=seed, **kw)
         return T(mass), T(I_inv), T(v), T(w), ContactSet(**{k: T(x) for k, x in cs.items()})
 
-    def solver_vs_plain(name, args):
-        out = sk.solve_contacts_fused_cuda(*args, H)
+    def solver_vs_plain(name, args, h=H, **kw):
+        out = sk.solve_contacts_fused_cuda(*args, h, **kw)
         torch.cuda.synchronize()
-        return out, _compare(name, out, sk.solve_contacts_fused_plain(*args, H))
+        return out, _compare(name, out, sk.solve_contacts_fused_plain(*args, h, **kw))
 
     rand_args = random_args(N_ENVS, 255, 0)
     out_rand, err_rand = solver_vs_plain("random contacts", rand_args)
@@ -1601,6 +1949,30 @@ def main():
           f"train_s2 task substep max_abs_err {err_student:.3e} "
           f"({int(capture.active_counts(student_args[4]).sum())} of {student_args[4].depth.numel()} "
           f"contacts active)", flush=True)
+    # phase 17's grid: each rank of the sharded teacher training steps SHARD_ENVS // 2 envs
+    # (rank 1's reset, from its own seed)
+    from isaacgyminsertion_tpu_torch.parallel import mesh
+
+    shard_args = capture.substep_problem(cfg, model, subs, SHARD_ENVS // 2, H, dev, seed=mesh.rank_seed(0, 1))
+    _, err_shard = solver_vs_plain(f"env contacts, one rank of {SHARD_ENVS} envs", shard_args)
+    print(f"kernel vs plain: contact_solver N={SHARD_ENVS // 2} C={shard_args[4].depth.shape[1]}: one rank of "
+          f"the sharded training, env substep max_abs_err {err_shard:.3e} "
+          f"({int(capture.active_counts(shard_args[4]).sum())} of {shard_args[4].depth.numel()} contacts "
+          f"active)", flush=True)
+    # and the sensors-on epoch of phase 17 (c) steps one rank's SHARD_SENSOR_ENVS // 2 envs on the
+    # dry run's reduced config (one substep of 1/60 s, 4 velocity iterations)
+    from isaacgyminsertion_tpu_torch.parallel import dryrun
+
+    cfg_r = dryrun.task_config(dryrun.RunSpec(n_envs=SHARD_SENSOR_ENVS, sensors=True))
+    h_r = cfg_r.sim.dt / cfg_r.sim.substeps
+    shard_s_args = capture.substep_problem(cfg_r, model, subs, SHARD_SENSOR_ENVS // 2, h_r, dev, seed=1)
+    _, err_shard_s = solver_vs_plain("env contacts, reduced config", shard_s_args, h_r,
+                                     iters=cfg_r.sim.solver_iters)
+    err_shard = max(err_shard, err_shard_s)
+    print(f"kernel vs plain: contact_solver N={SHARD_SENSOR_ENVS // 2} C={shard_s_args[4].depth.shape[1]}: one "
+          f"rank of the sensors-on sharded epoch ({cfg_r.sim.solver_iters} iterations, h = {h_r:.5f} s), env "
+          f"substep max_abs_err {err_shard_s:.3e}", flush=True)
+    del shard_args, shard_s_args
     q = lambda x: int(torch.quantile(k_env, x, interpolation="higher"))
     print(f"contact_solver: active contacts per env on the env substep: min {int(k_env.min())}, "
           f"median {q(0.5)}, p99 {q(0.99)}, max {int(k_env.max())} of {real_args[4].depth.shape[1]}; "
@@ -1715,6 +2087,30 @@ def main():
               f"{share_t:.5%} of pixels flipped; camera_render exact N={c1_args[0].shape[0]} max_abs_err "
               f"{errs[('camera', 'one env')]:.3e}, {share_c:.5%} of pixels flipped", flush=True)
         del one, one_s
+        # phase 17's sensors-on grids: the rows a rank owns of the global selection, a count
+        # that varies from step to step. Two ranks of STUDENT_ENVS envs at render_capacity 0.75
+        # (k = 384 of 512, as phase 17 (c)), at the first step where each rank's count is odd
+        sels = capture.rank_selections(STUDENT_ENVS, 2, 0.75, dev)
+        sel_step, sel_pair = next((i, p) for i, p in enumerate(sels) if all(len(x) % 2 for x in p))
+        sel_errs = []
+        for sel in sel_pair:
+            (tg_args, tg_kw), (cg_args, cg_kw) = capture.sensor_inputs(model, capture.env_rows(s_state, sel))
+            k_img = rk.tactile_render_cuda(*tg_args, **tg_kw)
+            torch.cuda.synchronize()
+            e_t, share_t = _compare_images(f"tactile_render exact, {len(sel)} gathered rows", k_img,
+                                           rk.tactile_render_plain(*tg_args, **tg_kw))
+            kt, kd, kc = rk.camera_render_cuda(*cg_args, **cg_kw)
+            torch.cuda.synchronize()
+            pt, pd, pc = rk.camera_render_plain(*cg_args, **cg_kw)
+            e_c, share_c = _compare_images(f"camera_render exact, {len(sel)} gathered rows", kt, pt,
+                                           [(kc, pc), (kd, pd)])
+            sel_errs.append((e_t, e_c))
+            print(f"kernel vs plain on a rank's gathered rows (global step {sel_step}): tactile_render exact "
+                  f"R={tg_args[0].shape[0]} max_abs_err {e_t:.3e}, {share_t:.5%} of pixels flipped; "
+                  f"camera_render exact N={cg_args[0].shape[0]} max_abs_err {e_c:.3e}, {share_c:.5%} of pixels "
+                  f"flipped", flush=True)
+        errs[("tactile", "gathered")] = max(e for e, _ in sel_errs)
+        errs[("camera", "gathered")] = max(e for _, e in sel_errs)
 
     # every image the sensors-on env hands out is finite and in range
     with torch.no_grad():
@@ -1752,7 +2148,7 @@ def main():
         solve = lambda args: time_ms(lambda: sk.solve_contacts_fused_cuda(*args, H), reps=50)
         solver_ms = statistics.median(solver_times)
         row(sk.KERNEL_NAME, "contact_solver.cu", "isaacgyminsertion_tpu/physics/solver_pallas.py:40",
-            max(err_real, err_train, err_student, err_one), solver_times,
+            max(err_real, err_train, err_student, err_one, err_shard), solver_times,
             time_ms(lambda: sk.solve_contacts_fused_plain(*real_args, H), reps=5, warmup=1),
             sk.flops(n, c, active=int(k_env.sum())), sk.bytes_moved(n, c))
         print(f"times: contact_solver env substep {N_ENVS} envs {solver_ms:.4f} ms, "
@@ -1765,7 +2161,7 @@ def main():
         noise_kw = dict(generator=insertion.make_generator(9, dev), noise_std=0.01)
         r, p = t_rows[0].shape[0], t_rows[1].shape[1]
         row("tactile_render", "tactile_render.cu", "isaacgyminsertion_tpu/sensors/render_pallas.py:90",
-            max(errs[("tactile", "env state")], errs[("tactile", "one env")]),
+            max(errs[("tactile", "env state")], errs[("tactile", "one env")], errs[("tactile", "gathered")]),
             times_ms(lambda: rk.tactile_rows_cuda(*t_rows, **t_rkw, **noise_kw), reps=30, flush=flush),
             time_ms(lambda: rk.tactile_rows_plain(*t_rows, **t_rkw, **noise_kw), reps=5, warmup=1,
                     flush=flush),
@@ -1773,7 +2169,7 @@ def main():
         c_rows, c_rkw = capture.camera_packed(c_args, c_kw)
         n, p = c_rows[0].shape[0], c_rows[1].shape[1]
         row("camera_render", "camera_render.cu", "isaacgyminsertion_tpu/sensors/render_pallas.py:388",
-            max(errs[("camera", "env state")], errs[("camera", "one env")]),
+            max(errs[("camera", "env state")], errs[("camera", "one env")], errs[("camera", "gathered")]),
             times_ms(lambda: rk.camera_rows_cuda(*c_rows, **c_rkw), reps=30, flush=flush),
             time_ms(lambda: rk.camera_rows_plain(*c_rows, **c_rkw), reps=5, warmup=1, flush=flush),
             rk.camera_flops(c_rows[0], p, exact=True), rk.camera_bytes_moved(n, p))
@@ -1787,7 +2183,7 @@ def main():
         print("kernels only: the main paths were skipped, no result line", flush=True)
         return
 
-    # ------------------------------------------- 4-6, 8-16. the main paths
+    # ------------------------------------------- 4-6, 8-17. the main paths
     del real_args, train_args, student_args, rand_args, s_state, s_out
     torch.cuda.empty_cache()
     results = {}
@@ -1801,6 +2197,10 @@ def main():
         if r["name"] == "tactile_render":
             r["max_abs_err"] = max(r["max_abs_err"], err_rotate)
         r["launches"] = sum(results[p][r["name"]] for p in results)
+    fps_single = units["teacher training, grasp resets, sys-id"]["extra"]["train_fps"]
+    print(f"sharded training: {units['sharded training']['extra']['sharded_fps']:.1f} env-steps/s summed over 2 "
+          f"ranks x {SHARD_ENVS // 2} envs on one card, beside phase 8's single process at {TRAIN_ENVS} envs "
+          f"{[round(v, 1) for v in fps_single]} (same run; both shared the card with the other units)", flush=True)
     print(f"launches by path: {json.dumps(results)}; {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

@@ -226,8 +226,25 @@ class PPOTrainer:
         print(f"[anneal] restored best eval {self._best_eval:.3f}, lr -> {self._cur_lr:.2e}",
               flush=True)
 
+    def policy_act_fn(self):
+        """env_state → the current policy's clamped deterministic actions."""
+        act = ppo_mod.make_act_fn(self.cfg_task, self.net)
+
+        def act_fn(env_state):
+            priv = insertion.priv_info_of(self.cfg_task, self.model, env_state)
+            return act(self.state.obs_rms, self.state.priv_rms, env_state.obs_queue, priv)
+
+        return act_fn
+
     def record_video(self, n_steps: int = 150, seed: int = 0):
-        raise NotImplementedError("record_video waits for utils/video.py, which is not ported yet")
+        """Rollout video + action/force traces of one env under the current
+        deterministic policy (frozen_ppo.py:791-851 mp4/plot logging parity)
+        → the paths of `videos/rollout.gif` and `videos/traces.png`."""
+        from ..utils.video import record_eval_video
+
+        return record_eval_video(self.cfg_task, self.model, self.subs, self.policy_act_fn(), n_steps=n_steps,
+                                 out_dir=os.path.join(self.ckpt.out_dir, "videos"), seed=seed,
+                                 device=self.device)
 
 
 def make_student_eval_fn(cfg_task, da_cfg, model, subs, teacher: ea.TeacherBundle, n_envs: int,

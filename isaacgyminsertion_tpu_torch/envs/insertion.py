@@ -26,10 +26,14 @@ delayed per env, and kept in FIFO queues. The image queues are stored in
 float16 (pure [0, 1]-ranged frame storage; the ~1e-3 quantization sits far
 below the 0.01 pixel noise) and handed out as float32. With
 `env.render_capacity < 1` only the env rows that consume a fresh frame this
-step are rendered (`_render_sel`). `gan`, a `models.zoo.ResnetGenerator`,
+step are rendered (`render_selection`). `gan`, a `models.zoo.ResnetGenerator`,
 translates the rendered tactile frames sim → real before they enter the queue
 (the CycleGAN hook: frames × 2 − 1 → generator → (out + 1) / 2), on the
-gathered rows where only those are rendered.
+gathered rows where only those are rendered. Under data parallelism
+(`dp=`, a `parallel.mesh.DataParallel`, this process holding its rows of the
+global batch) the rows to render are selected over the global batch, as the
+single process selects them, and each rank renders the selected rows that it
+owns; `extras["render_rows"]` says how many each renderer drew here.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from ..sensors import camera as cam_mod
 from ..sensors import contact_gt as cgt_mod
 from ..sensors import pcl as pcl_mod
 from ..sensors import tactile as tact_mod
+from ..parallel import mesh
 from . import dr as dr_mod
 from .config import TaskConfig
 
@@ -588,10 +593,13 @@ def priv_info_of(cfg: TaskConfig, model: RobotModel, state: EnvState) -> torch.T
 
 
 def step(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, state: EnvState,
-         policy_actions: torch.Tensor, generator: torch.Generator, grasp_data=None, gan=None):
+         policy_actions: torch.Tensor, generator: torch.Generator, grasp_data=None, gan=None,
+         dp=None):
     """One control step of the full env batch → (state', StepOutput).
     `grasp_data` makes the resets replay a grasp-dataset table; `gan`, a
-    `ResnetGenerator`, translates the rendered tactile frames sim → real."""
+    `ResnetGenerator`, translates the rendered tactile frames sim → real;
+    `dp` makes `state` this rank's rows of a data-parallel batch (only the
+    render-on-demand selection looks past them)."""
     gen = generator
     n = policy_actions.shape[0]
     dev = policy_actions.device
@@ -706,8 +714,8 @@ def step(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, state: EnvSta
                          + ema * state.finger_forces_ema)
 
     # ---------------- sensor modalities (decimation + delay)
-    queues, render_overflow = _sensor_step(cfg, model, subs, state, phys, fk2, ftc_t2, frame,
-                                           progress, finger_forces_ema, gen, gan)
+    queues, render_overflow, render_rows = _sensor_step(cfg, model, subs, state, phys, fk2, ftc_t2,
+                                                        frame, progress, finger_forces_ema, gen, gan, dp)
 
     # ---------------- observation staleness (decimation + delay)
     refresh = ((frame + state.plug_pose_refresh_offset) % state.plug_pose_refresh_rate) == 0
@@ -776,6 +784,8 @@ def step(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, state: EnvSta
         # render-on-demand starvation: env rows that wanted a fresh sensor
         # frame this step but were past render_capacity (0 when capacity = 1)
         "render_overflow": render_overflow.expand(n),
+        # env rows the tactile and camera renderers drew this step, here (host ints)
+        "render_rows": render_rows,
     }
 
     new_state = state._replace(
@@ -803,10 +813,36 @@ def _push(latest, queue):
     return torch.cat([latest[:, None], queue[:, :-1]], dim=1)
 
 
+def render_count(n: int, capacity: float) -> int:
+    """Rows the render-on-demand path draws out of a batch of `n`: ceil(capacity·n)
+    rounded up to a multiple of 8, at least 8, at most n."""
+    return min(n, max(8, -(-int(capacity * n) // 8) * 8))
+
+
+def render_selection(prio: torch.Tensor, capacity: float, global_step: int, dp=None) -> torch.Tensor:
+    """The rows to render this step, lowest priority rank first: the
+    `render_count` rows of the batch, the tie-break rotating with global_step. With `dp` the priorities [N / W] are
+    this rank's rows: the selection is made over the gathered global [N]
+    vector, and this rank gets the selected rows that it owns (local indices,
+    in the global order; possibly none)."""
+    n = prio.shape[0] if dp is None else prio.shape[0] * dp.world_size
+    if dp is not None:
+        prio = mesh.all_gather_rows(prio, dp)
+    k = render_count(n, capacity)
+    # int64 arithmetic: the reference's int32 product wraps after ~271k steps
+    rotate = (torch.arange(n, device=prio.device) + global_step * 7919) % n
+    sel = torch.argsort(prio.long() * n + rotate, stable=True)[:k]
+    if dp is None:
+        return sel
+    lo, hi = dp.rows(n)
+    return sel[(sel >= lo) & (sel < hi)] - lo
+
+
 def _sensor_step(cfg, model, subs, state: EnvState, phys: PhysicsState, fk2, ftc_t2, frame,
-                 progress, finger_forces_ema, gen, gan=None):
+                 progress, finger_forces_ema, gen, gan=None, dp=None):
     """Render the sensor modalities that are on and push them into their
-    queues → (the five queues, dropped consumers this step [scalar]).
+    queues → (the five queues, dropped consumers this step [scalar], rows the
+    tactile and camera renderers drew as two host ints).
 
     Render-on-demand (`env.render_capacity` < 1): the decimation and delay
     pipeline discards most frames, so instead of rendering all N envs and
@@ -814,21 +850,21 @@ def _sensor_step(cfg, model, subs, state: EnvState, phys: PhysicsState, fk2, ftc
     step (lowest priority rank first) are gathered, rendered and scattered
     back. Consumers past capacity keep their stale frame one more step; the
     tie-break rotates with global_step so a burst of equal-rank rows drains
-    across consecutive steps instead of starving the high indices."""
+    across consecutive steps instead of starving the high indices. With `dp`
+    the selection is global (`render_selection`) and a rank that owns none of
+    the selected rows renders nothing."""
     e = cfg.env
     params = state.params
     n = progress.shape[0]
     dev = progress.device
     queues = {k: getattr(state, k) for k in SENSOR_QUEUES}
     render_overflow = torch.zeros((), device=dev)
+    render_rows = [0, 0]
     use_sel = 0.0 < e.render_capacity < 1.0
     rand = lambda: torch.rand((n,), generator=gen, device=dev)
 
     def render_sel(prio):
-        k = min(n, max(8, -(-int(e.render_capacity * n) // 8) * 8))
-        # int64 arithmetic: the reference's int32 product wraps after ~271k steps
-        rotate = (torch.arange(n, device=dev) + state.global_step * 7919) % n
-        return torch.argsort(prio.long() * n + rotate, stable=True)[:k]
+        return render_selection(prio, e.render_capacity, state.global_step, dp)
 
     def overflow_of(sel, consume):
         in_sel = torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -853,16 +889,20 @@ def _sensor_step(cfg, model, subs, state: EnvState, phys: PhysicsState, fk2, ftc
         if use_sel:
             render_overflow = render_overflow + overflow_of(sel_t, t_upd)
         gt = (lambda x: x[sel_t]) if use_sel else (lambda x: x)
-        timg = tact_mod.render_tactile(
-            tact_mod.TactileConfig(), gt(tip_q3), gt(tip_t3), gt(phys.plug_quat), gt(phys.plug_pos),
-            gt(params.kind_onehot), gt(params.plug_hx * psc), gt(params.plug_hy * psc),
-            gt(params.plug_length * psc), gt(finger_forces_ema), generator=gen, noise_std=0.01)
-        if gan is not None:
-            # CycleGAN sim→real on the rendered frames; the generator is tanh-ranged
-            out_g = gan(timg.reshape((-1,) + timg.shape[2:]) * 2.0 - 1.0)
-            timg = (out_g.reshape(timg.shape) + 1.0) * 0.5
         tq = state.tactile_queue
-        queues["tactile_queue"] = _push(latest_of(sel_t, t_upd, timg.to(tq.dtype), tq[:, 0]), tq)
+        render_rows[0] = n if sel_t is None else sel_t.shape[0]
+        if render_rows[0] == 0:   # a rank that owns none of the selected rows
+            queues["tactile_queue"] = _push(tq[:, 0], tq)
+        else:
+            timg = tact_mod.render_tactile(
+                tact_mod.TactileConfig(), gt(tip_q3), gt(tip_t3), gt(phys.plug_quat), gt(phys.plug_pos),
+                gt(params.kind_onehot), gt(params.plug_hx * psc), gt(params.plug_hy * psc),
+                gt(params.plug_length * psc), gt(finger_forces_ema), generator=gen, noise_std=0.01)
+            if gan is not None:
+                # CycleGAN sim→real on the rendered frames; the generator is tanh-ranged
+                out_g = gan(timg.reshape((-1,) + timg.shape[2:]) * 2.0 - 1.0)
+                timg = (out_g.reshape(timg.shape) + 1.0) * 0.5
+            queues["tactile_queue"] = _push(latest_of(sel_t, t_upd, timg.to(tq.dtype), tq[:, 0]), tq)
     if e.external_cam:
         ccfg = cam_mod.CameraConfig()
         i_refresh = ((frame + state.img_refresh_offset) % state.img_refresh_rate) == 0
@@ -875,58 +915,65 @@ def _sensor_step(cfg, model, subs, state: EnvState, phys: PhysicsState, fk2, ftc
         sel_c = render_sel(torch.where(initial, 0, torch.where(i_refresh, 1, 2))) if use_sel else None
         if use_sel:
             render_overflow = render_overflow + overflow_of(sel_c, initial | i_upd | s_upd)
-        gc = (lambda x: x[sel_c]) if use_sel else (lambda x: x)
-        # the descending hand occludes the scene in the depth/seg frames: proxy
-        # it as 3 fingertip spheres (12 mm) + a wrist→palm capsule (32 mm) that
-        # ends at the palm, 55% of the way from the fingertips to the wrist, so
-        # the grasped plug reads through the finger gaps
-        cam_tips = engine.fingertip_poses(model, fk2)[1]
-        cam_wrist = fk2.body_t[..., 6, :]
-        cam_palm = ftc_t2 + 0.55 * (cam_wrist - ftc_t2)
-        depth_n, seg_im, depth_raw = cam_mod.render_depth_seg(
-            ccfg, gc(phys.plug_quat), gc(phys.plug_pos), gc(params.socket_quat),
-            gc(params.socket_pos), gc(params.kind_onehot), gc(params.plug_hx), gc(params.plug_hy),
-            gc(params.plug_length), gc(params.hole_hx), gc(params.hole_hy),
-            gc(params.socket_height), gc(params.table_height), generator=gen,
-            tip_pos=gc(cam_tips), wrist_pos=gc(cam_wrist), hand_pos=gc(cam_palm),
-            tip_radius=0.012, hand_radius=0.032)
-        nr = seg_im.shape[0]
-        if e.depth_cam:
-            iq = state.img_queue
-            queues["img_queue"] = _push(latest_of(sel_c, i_upd, depth_n.to(iq.dtype), iq[:, 0]), iq)
-        if e.seg_cam:
-            sq = state.seg_queue
-            noisy = gc(~initial) & (torch.rand((nr,), generator=gen, device=dev) > 1 - e.seg_prob_noise)
-            seg_noisy = torch.where(noisy[:, None, None],
-                                    cam_mod.seg_noise(seg_im, gen, e.seg_prob_noise), seg_im)
-            queues["seg_queue"] = _push(latest_of(sel_c, s_upd, seg_noisy.to(sq.dtype), sq[:, 0]), sq)
-        if e.pcl_cam:
-            pq = state.pcl_queue
-            dense = const(subs.dense_points, dev)[gc(state.sub_idx)]
-            goal_pts = gc(params.socket_pos)[:, None, :] + rot.quat_apply(
-                gc(params.socket_quat)[:, None, :], dense)
-            merged = pcl_mod.assemble_scene_pcl(
-                ccfg, depth_raw, seg_im, goal_pts, gen, num_plug=e.num_points,
-                num_socket=e.num_points_socket, num_goal=e.num_points_goal,
-                include_plug=e.include_plug_pcl, merge_socket=e.merge_socket_pcl,
-                merge_goal=e.merge_goal_pcl, include_all=e.include_all_pcl)
-            if e.merge_socket_pcl and e.include_plug_pcl:
-                # the socket slice is captured once per episode (progress < 10,
-                # before the descending plug occludes it) and then frozen
-                s0, s1 = e.num_points, e.num_points + e.num_points_socket
-                sock = _where(gc(initial), merged[:, s0:s1], gc(pq[:, 0, s0:s1]))
-                merged = torch.cat([merged[:, :s0], sock, merged[:, s1:]], dim=1)
-            p_noise_on = gc(~initial) & (torch.rand((nr,), generator=gen, device=dev)
-                                         > 1 - e.pcl_prob_noise)
-            merged = pcl_mod.augment_pcl(merged, gen, pcl_mod.PclAugmentConfig(), p_noise_on)
-            queues["pcl_queue"] = _push(latest_of(sel_c, i_upd, merged, pq[:, 0]), pq)
+        render_rows[1] = n if sel_c is None else sel_c.shape[0]
+        if render_rows[1] == 0:   # a rank that owns none of the selected rows
+            for name, on in (("img_queue", e.depth_cam), ("seg_queue", e.seg_cam),
+                             ("pcl_queue", e.pcl_cam)):
+                if on:
+                    queues[name] = _push(queues[name][:, 0], queues[name])
+        else:
+            gc = (lambda x: x[sel_c]) if use_sel else (lambda x: x)
+            # the descending hand occludes the scene in the depth/seg frames: proxy
+            # it as 3 fingertip spheres (12 mm) + a wrist→palm capsule (32 mm) that
+            # ends at the palm, 55% of the way from the fingertips to the wrist, so
+            # the grasped plug reads through the finger gaps
+            cam_tips = engine.fingertip_poses(model, fk2)[1]
+            cam_wrist = fk2.body_t[..., 6, :]
+            cam_palm = ftc_t2 + 0.55 * (cam_wrist - ftc_t2)
+            depth_n, seg_im, depth_raw = cam_mod.render_depth_seg(
+                ccfg, gc(phys.plug_quat), gc(phys.plug_pos), gc(params.socket_quat),
+                gc(params.socket_pos), gc(params.kind_onehot), gc(params.plug_hx), gc(params.plug_hy),
+                gc(params.plug_length), gc(params.hole_hx), gc(params.hole_hy),
+                gc(params.socket_height), gc(params.table_height), generator=gen,
+                tip_pos=gc(cam_tips), wrist_pos=gc(cam_wrist), hand_pos=gc(cam_palm),
+                tip_radius=0.012, hand_radius=0.032)
+            nr = seg_im.shape[0]
+            if e.depth_cam:
+                iq = state.img_queue
+                queues["img_queue"] = _push(latest_of(sel_c, i_upd, depth_n.to(iq.dtype), iq[:, 0]), iq)
+            if e.seg_cam:
+                sq = state.seg_queue
+                noisy = gc(~initial) & (torch.rand((nr,), generator=gen, device=dev) > 1 - e.seg_prob_noise)
+                seg_noisy = torch.where(noisy[:, None, None],
+                                        cam_mod.seg_noise(seg_im, gen, e.seg_prob_noise), seg_im)
+                queues["seg_queue"] = _push(latest_of(sel_c, s_upd, seg_noisy.to(sq.dtype), sq[:, 0]), sq)
+            if e.pcl_cam:
+                pq = state.pcl_queue
+                dense = const(subs.dense_points, dev)[gc(state.sub_idx)]
+                goal_pts = gc(params.socket_pos)[:, None, :] + rot.quat_apply(
+                    gc(params.socket_quat)[:, None, :], dense)
+                merged = pcl_mod.assemble_scene_pcl(
+                    ccfg, depth_raw, seg_im, goal_pts, gen, num_plug=e.num_points,
+                    num_socket=e.num_points_socket, num_goal=e.num_points_goal,
+                    include_plug=e.include_plug_pcl, merge_socket=e.merge_socket_pcl,
+                    merge_goal=e.merge_goal_pcl, include_all=e.include_all_pcl)
+                if e.merge_socket_pcl and e.include_plug_pcl:
+                    # the socket slice is captured once per episode (progress < 10,
+                    # before the descending plug occludes it) and then frozen
+                    s0, s1 = e.num_points, e.num_points + e.num_points_socket
+                    sock = _where(gc(initial), merged[:, s0:s1], gc(pq[:, 0, s0:s1]))
+                    merged = torch.cat([merged[:, :s0], sock, merged[:, s1:]], dim=1)
+                p_noise_on = gc(~initial) & (torch.rand((nr,), generator=gen, device=dev)
+                                             > 1 - e.pcl_prob_noise)
+                merged = pcl_mod.augment_pcl(merged, gen, pcl_mod.PclAugmentConfig(), p_noise_on)
+                queues["pcl_queue"] = _push(latest_of(sel_c, i_upd, merged, pq[:, 0]), pq)
     if e.compute_contact_gt:
         dense = const(subs.dense_points, dev)[state.sub_idx]
         contacts = cgt_mod.extrinsic_contact(
             dense, phys.plug_quat, phys.plug_pos, params.socket_quat, params.socket_pos,
             params.kind_onehot, params.hole_hx, params.hole_hy, params.socket_height, gen)
         queues["contact_queue"] = _push(contacts, state.contact_queue)
-    return queues, render_overflow
+    return queues, render_overflow, tuple(render_rows)
 
 
 def _check_close(cfg, phys, socket_tip):

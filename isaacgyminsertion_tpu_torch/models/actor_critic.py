@@ -179,11 +179,12 @@ def sample_actions(mu, log_std, generator: torch.Generator | None = None, noise=
     return actions, gaussian_neglogp(actions, mu, log_std)
 
 
-def policy_kl(mu0, sigma0, mu1, sigma1):
-    """Analytic diagonal-Gaussian KL, averaged over the batch."""
+def policy_kl(mu0, sigma0, mu1, sigma1, reduce=torch.mean):
+    """Analytic diagonal-Gaussian KL, averaged over the batch (`reduce` over
+    the per-row KLs)."""
     c1 = torch.log(sigma1 / sigma0 + 1e-5)
     c2 = (sigma0**2 + (mu1 - mu0) ** 2) / (2.0 * sigma1**2 + 1e-5)
-    return torch.mean(torch.sum(c1 + c2 - 0.5, dim=-1))
+    return reduce(torch.sum(c1 + c2 - 0.5, dim=-1))
 
 
 def actor_critic_from_jax_params(params, device=None) -> ActorCriticSplit:

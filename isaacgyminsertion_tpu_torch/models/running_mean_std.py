@@ -41,8 +41,14 @@ def rms_update(state: RMSState, batch: torch.Tensor) -> RMSState:
     dims = tuple(range(batch.ndim - state.mean.ndim))
     batch_mean = torch.mean(batch, dim=dims)
     batch_var = torch.var(batch, dim=dims, correction=0)
-    batch_count = torch.tensor(float(np.prod(batch.shape[:len(dims)])), dtype=state.count.dtype,
-                               device=state.count.device)
+    return rms_fold(state, batch_mean, batch_var, float(np.prod(batch.shape[:len(dims)])))
+
+
+def rms_fold(state: RMSState, batch_mean, batch_var, batch_count: float) -> RMSState:
+    """Fold a batch's mean, population variance and count into the state
+    (Chan et al.); `rms_update` on a batch, or on moments gathered over
+    data-parallel ranks."""
+    batch_count = torch.tensor(batch_count, dtype=state.count.dtype, device=state.count.device)
     delta = batch_mean - state.mean
     tot = state.count + batch_count
     new_mean = state.mean + delta * batch_count / tot

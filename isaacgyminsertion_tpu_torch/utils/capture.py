@@ -22,6 +22,7 @@ from ..physics.robot import SITE_FINGERTIP_CENTERED
 from ..sensors import camera as cam_mod
 from ..sensors import render_kernels as rk
 from ..sensors import tactile as tact_mod
+from .checkpoint import tree_map
 
 
 def substep_problem(cfg, model, subs, n: int, h: float, dev, seed: int = 0):
@@ -86,6 +87,26 @@ def sensor_inputs(model, state):
         p.table_height, tip_pos=tip_t, wrist_pos=wrist, hand_pos=ftc_t + 0.55 * (wrist - ftc_t),
         tip_radius=0.012, hand_radius=0.032)
     return tact, cam
+
+
+def rank_selections(n_rank: int, world: int, capacity: float, dev, seed: int = 0, steps: int = 64):
+    """The rows each rank renders on the sharded render-on-demand path of a
+    group of `world` ranks of `n_rank` envs each: `render_selection` over the
+    gathered priorities (drawn from {0, 1, 2}), each rank taking the selected
+    rows it owns, at global steps 0, 1, ... → per step, one tensor of local
+    rows a rank."""
+    n = n_rank * world
+    prio = torch.randint(0, 3, (n,), generator=insertion.make_generator(seed, dev), device=dev)
+    out = []
+    for step in range(steps):
+        sel = insertion.render_selection(prio, capacity, step)
+        out.append([sel[(sel >= r * n_rank) & (sel < (r + 1) * n_rank)] - r * n_rank for r in range(world)])
+    return out
+
+
+def env_rows(state, rows):
+    """The env state's rows `rows` (every leaf with a leading env axis)."""
+    return tree_map(lambda x: x[rows] if x.ndim else x, state)
 
 
 def random_scene(n: int, seed: int, dev):

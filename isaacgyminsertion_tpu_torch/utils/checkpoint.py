@@ -47,17 +47,23 @@ def restore_path(path: str):
         return _Unpickler(f).load()
 
 
+def tree_map(fn, tree: Any) -> Any:
+    """`fn` applied to every tensor of a tree of dicts, lists, tuples and
+    namedtuples; any other leaf stays as it is."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[tree_map(fn, v) for v in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return tree
+
+
 def _to_host(tree: Any) -> Any:
     """Tensors → numpy arrays, through dicts, lists and namedtuples."""
-    if isinstance(tree, torch.Tensor):
-        return np.asarray(tree.detach().cpu())
-    if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*[_to_host(v) for v in tree])
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_host(v) for v in tree)
-    return tree
+    return tree_map(lambda t: np.asarray(t.detach().cpu()), tree)
 
 
 class Checkpointer:

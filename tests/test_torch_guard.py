@@ -352,3 +352,74 @@ def test_transport_codec_builds_into_the_package_build_dir_only(monkeypatch, cap
     after = {d: sorted(os.listdir(d)) for d in (native_dir, jax_native)}
     assert after == before
     assert stamps == {f: os.stat(os.path.join(jax_native, f)).st_mtime_ns for f in after[jax_native]}
+
+
+def test_slice_ten_modules_exist_and_import_neither_jax_nor_the_jax_package():
+    """Data parallelism, the utilities, the SLURM launcher and the drivers are
+    in the port, and the import walk above covers them."""
+    sources = list(_sources())
+    for module in ("parallel/mesh.py", "parallel/dryrun.py", "utils/video.py", "utils/scene_export.py",
+                   "utils/profiling.py", "utils/rna.py", "pbt/slurm.py", "deploy/drivers.py"):
+        path = os.path.join(ROOT, PORT, module)
+        assert any(os.path.samefile(p, path) for p in sources if os.path.exists(p)), module
+        tree = ast.parse(open(path).read(), filename=path)
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.level == 0 and n.module]
+        assert not [n for n in names if _forbidden(n)], (module, names)
+
+
+def test_slice_ten_entry_points_refuse_the_cpu_unless_asked(tmp_path):
+    """The dry run, the rollout video, the EKI arm and a rank's process group:
+    without a GPU and without a CPU request they raise before any work."""
+    from isaacgyminsertion_tpu_torch.assets import build_subassembly_set
+    from isaacgyminsertion_tpu_torch.deploy.drivers import EkiIiwaArm
+    from isaacgyminsertion_tpu_torch.envs.config import default_task_config
+    from isaacgyminsertion_tpu_torch.parallel import dryrun, mesh
+    from isaacgyminsertion_tpu_torch.physics.robot import build_kuka_openhand
+    from isaacgyminsertion_tpu_torch.utils.video import record_eval_video
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points run on it")
+    act = lambda s: torch.zeros((1, 6))
+    for call in (lambda: dryrun.dryrun(2, "gloo"),
+                 lambda: record_eval_video(default_task_config(), build_kuka_openhand(),
+                                           build_subassembly_set(), act, 2, str(tmp_path / "v")),
+                 lambda: EkiIiwaArm("127.0.0.1", port=9),
+                 lambda: mesh.init("gloo", 0, 1, f"file://{tmp_path / 'rdv'}")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    with pytest.raises(ValueError, match="nccl"):
+        mesh.init("nccl", 0, 1, f"file://{tmp_path / 'rdv'}", device="cpu")
+    assert not os.path.exists(tmp_path / "v")
+
+
+def test_pbt_slurm_dry_run_writes_the_reference_scripts(tmp_path, capsys):
+    """`pbt/slurm.py --dry-run` writes the scripts that scripts/run_pbt_slurm.py
+    writes, apart from the run command, the partition and the gres line."""
+    import importlib.util
+
+    from isaacgyminsertion_tpu_torch.pbt import slurm
+
+    spec = importlib.util.spec_from_file_location("run_pbt_slurm_reference",
+                                                  os.path.join(ROOT, "scripts", "run_pbt_slurm.py"))
+    reference = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reference)
+    argv = ["--policies", "6", "--jobs", "3", "--workspace", str(tmp_path / "ws"), "--num-envs", "256",
+            "--extra=--mem=64G;--cpus-per-task=8", "--dry-run"]
+    ref_paths = reference.main(argv)
+    ref_texts = [open(p).read() for p in ref_paths]
+    ref_out = capsys.readouterr().out
+    paths = slurm.main(argv)
+    texts = [open(p).read() for p in paths]
+    out = capsys.readouterr().out
+    assert paths == ref_paths and len(texts) == 3
+
+    def expected(text):
+        return (text.replace("python scripts/run_pbt.py", "python -m isaacgyminsertion_tpu_torch.pbt.run")
+                .replace("#SBATCH --partition=tpu", "#SBATCH --partition=gpu")
+                .replace("#SBATCH --nodes=1\n", "#SBATCH --nodes=1\n#SBATCH --gres=gpu:1\n"))
+
+    assert texts == [expected(t) for t in ref_texts]
+    assert "export POLICY_OFFSET=4" in texts[2] and "#SBATCH --mem=64G" in texts[0]
+    assert out == expected(ref_out)
