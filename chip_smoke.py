@@ -6,7 +6,7 @@
 
 Any failure exits nonzero without printing a result. Phases 1-3 and 7 run
 first, in this process, alone on the card. The main paths (phases 4-6 and
-8-17) then run as worker processes of this script (`--unit`), UNIT_SLOTS at
+8-18) then run as worker processes of this script (`--unit`), UNIT_SLOTS at
 a time: UNITS groups them, a unit starts once the units whose files it reads
 have ended, and each unit's output is printed when it ends. The phases:
   1. device and precision: CUDA present, card name and power limit, TF32 off;
@@ -156,7 +156,8 @@ have ended, and each unit's output is printed when it ends. The phases:
      range); (c) (a)'s player over RemoteInterface <-> serve_hardware on
      loopback, 30 steps, the native codec asserted, its actions against (a)'s
      (printed, with the first differing step where they differ by more than
-     1e-5); (d) the diffusion player on phase 13's checkpoint and the position
+     1e-5) and against a local run fed the deltas as float32, as the wire
+     carries them (printed: bitwise equal or not); (d) the diffusion player on phase 13's checkpoint and the position
      player on 10b's regressor (tactile flag: 1 tactile launch a step), 16
      steps each; (e) calibrate_deploy_scales against (a)'s trail, 6 trials x
      20 steps: exactly 360 solver launches, a finite best loss; (f) a
@@ -189,6 +190,24 @@ have ended, and each unit's output is printed when it ends. The phases:
      fake controller on loopback: 60 servo steps along +x, the reference's
      wire format, and each real driver's DriverUnavailable reason where its
      SDK is missing.
+ 18. the bench (`python -m isaacgyminsertion_tpu_torch.bench`'s modes): (a)
+     `sensors` (tactile + depth/seg cameras, render_capacity 0.75) and (b)
+     `pcl` (the same + the point cloud) at 8192 envs, horizon 64, each built
+     by `bench.build_epoch` and run by `bench.measure` (its FLOP-counted
+     warm-up, then one timed epoch): its timed launches exactly 3 x 64
+     solver launches and, for each renderer, its steps with rendered rows
+     (`render_rows`), both renderers launched, 3 x 64 solver launches in the
+     warm-up too, 524,288 agent steps an epoch, finite rate, mfu, metrics and
+     parameters, every sensor queue finite and in range; env-steps/s and peak
+     memory printed; then, on (a)'s final state, both renderers against their
+     plain versions on the bench's grid (the render_selection at 0.75 of 8192
+     envs: 6,144 envs, 18,432 tactile rows) at phase 3's tolerances, the
+     errors folded into the kernels line; (c) the bench's worker as
+     `run_worker` spawns it, mode `state` at 1024 envs with its horizon cut
+     from 64 to 16 (the FLOP-counted warm-up costs several epochs): its line
+     carries every key, a finite rate and mfu, and exactly 3 x 16 x 3 solver
+     launches in its timed epochs; (d) the package's `make` at 1024 envs and one env step on the card (3
+     solver launches), and `entry()`'s forward on the card.
 Phase 3 prints the random solver set's error beside the worst error relative
 to |plain|, the largest |plain| and the share of SOLVER_TOL it uses: the set
 drives some envs to huge impulses, where the absolute error is large.
@@ -302,6 +321,12 @@ ARM_STEPS, ARM_DX = 60, 0.002
 # the sensors-on epoch at render_capacity 0.75, nccl at world size 1; the utilities
 SHARD_ENVS, SHARD_SENSOR_ENVS, SHARD_SENSOR_STEPS, NCCL_ENVS = 8192, 512, 8, 512
 VIDEO_STEPS, DET_ENVS, TRACE_STEPS, RNA_ROWS = 150, 1024, 3, 8192
+# phase 18: the bench's sensors-on and point-cloud epochs at its own size; its worker in the
+# state mode at its own 1024 envs, the horizon cut from 64 to 16
+BENCH_ENVS, BENCH_HORIZON, BENCH_EPOCHS = 8192, 64, 1
+BENCH_PLAIN_ENVS = 256          # the plain renderers' chunk on the bench's grid, phase 3's size
+BENCH_WORKER = ("state", 1024, 16)
+BENCH_WORKER_TIMEOUT = 400
 
 
 def stand_in_real(frames):
@@ -1246,10 +1271,18 @@ def _deploy_path(cli, counts_zero, counts, substeps, work):
     codec, note = transport.codec()
     if codec != "native":
         raise PhaseError(f"loopback: the transport took the {codec} codec ({note})")
+
+    rec_w, wire = Steps(), transport.WireDeltas(SimInterface(cfg, seed=0))
+    n_w, out["deploy loopback, local float32 deltas"] = drive(
+        "teacher player on a 1-env SimInterface fed float32 deltas", wire, LOOPBACK_STEPS, per_step(),
+        lambda: player.deploy(wire, LOOPBACK_STEPS, logger=rec_w))
     k = min(n_c, n_a)
     diff = np.abs(np.stack(rec_c.acts[:k]) - np.stack(rec_a.acts[:k])).max(axis=1)
+    k_w = min(n_c, n_w)
+    bitwise = bool(np.array_equal(np.stack(rec_c.acts[:k_w]), np.stack(rec_w.acts[:k_w])))
     print(f"deploy loopback: codec {codec} at both ends ({note}); actions of {k} steps against "
-          f"(a)'s: max abs difference {float(diff.max()):.3e}", flush=True)
+          f"(a)'s: max abs difference {float(diff.max()):.3e}; against the local run fed float32 deltas "
+          f"(as the wire carries them), {k_w} steps: bitwise equal {bitwise}", flush=True)
     if float(diff.max()) > 1e-5:
         t = int(np.argmax(diff > 1e-5))
         d_obs = float(np.abs(rec_c.obs[t]["obs"] - rec_a.obs[t]["obs"]).max())
@@ -1579,6 +1612,152 @@ def _utilities_path(x):
     return out
 
 
+def _bench_path(x):
+    """Phase 18: the bench's sensors-on and point-cloud epochs at 8192 envs
+    through `bench.build_epoch`, then its worker CLI → {path: launch counts}."""
+    import torch
+
+    from isaacgyminsertion_tpu_torch import bench
+    from isaacgyminsertion_tpu_torch.parallel.dryrun import SENSOR_QUEUES
+
+    out = {}
+    for label, mode in (("(a)", "sensors"), ("(b)", "pcl")):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        step, state, ppo_cfg = bench.build_epoch(bench.task_config(mode), BENCH_ENVS, BENCH_HORIZON)
+        torch.cuda.synchronize()
+        print(f"bench {label} {mode}: {BENCH_ENVS} envs built and reset in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        horizon, steps0 = ppo_cfg.horizon, state.agent_steps
+        x.counts_zero()
+        t0 = time.perf_counter()
+        res, state, m = bench.measure(step, state, BENCH_ENVS, horizon, epochs=BENCH_EPOCHS)
+        c = x.counts()
+        epochs = 1 + res["epochs"]    # the warm-up and the timed ones
+        print(f"main path: bench {label} {mode} through bench.measure, {epochs} epochs in "
+              f"{time.perf_counter() - t0:.2f} s: {BENCH_ENVS} envs x {horizon} steps, timed "
+              f"{res['seconds_per_epoch']:.2f} s an epoch = {res['rate']:.1f} env-steps/s (rollout "
+              f"{m['time/rollout_s']:.2f} s, update {m['time/update_s']:.2f} s), peak memory "
+              f"{res['peak_memory_gb']:.3f} GB, {res['flops'] / 1e12:.3f} TFLOP counted in the warm-up "
+              f"(mfu {res['mfu']}); timed launches {res['launches']}, steps with rows {res['steps_with_rows']}, "
+              f"rendered rows a step {sorted({r for pair in step.render_rows for r in pair})}; launches of "
+              f"the {epochs} epochs {c}; loss {m['loss']:.4f}, kl {m['kl']:.5f}, reward "
+              f"{m['episode/reward']:.4f}, render overflow {m['episode/render_overflow']:.0f}", flush=True)
+        want = dict(contact_solver=x.substeps * horizon * res["epochs"], **res["steps_with_rows"])
+        if res["launches"] != want:
+            raise PhaseError(f"bench {mode}: timed launches {res['launches']}, expected {want}")
+        if not all(res["steps_with_rows"].values()):
+            raise PhaseError(f"bench {mode}: a renderer was never launched ({res['launches']})")
+        if c["contact_solver"] != x.substeps * horizon * epochs or not all(
+                res["launches"][k] < c[k] <= horizon * epochs for k in ("tactile_render", "camera_render")):
+            raise PhaseError(f"bench {mode}: launches of the {epochs} epochs {c}")
+        if state.agent_steps - steps0 != BENCH_ENVS * horizon * epochs:
+            raise PhaseError(f"bench {mode}: agent steps {state.agent_steps - steps0}, expected "
+                             f"{BENCH_ENVS * horizon * epochs}")
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        bad += [k for k in ("rate", "mfu", "loss", "kl") if not math.isfinite(res[k])]
+        if bad:
+            raise PhaseError(f"bench {mode}: {bad} not finite")
+        if not all(bool(torch.isfinite(p).all()) for p in state.net.parameters()):
+            raise PhaseError(f"bench {mode}: a parameter is not finite")
+        frames = {}
+        for name, (lo, hi) in SENSOR_QUEUES.items():
+            q = getattr(state.env_state, name)
+            if q.numel():
+                q = q.float()
+                frames[name] = (round(float(q.min()), 4), round(float(q.max()), 4))
+                if not bool(torch.isfinite(q).all()) or frames[name][0] < lo or frames[name][1] > hi:
+                    raise PhaseError(f"bench {mode}: {name} not finite or outside [{lo}, {hi}]: {frames[name]}")
+        want_queues = {"tactile_queue", "img_queue", "seg_queue"} | ({"pcl_queue"} if mode == "pcl" else set())
+        if set(frames) != want_queues:
+            raise PhaseError(f"bench {mode}: sensor queues {sorted(frames)}, expected {sorted(want_queues)}")
+        print(f"bench {label} {mode}: sensor queues finite and in range (min, max) {frames}", flush=True)
+        out[f"bench {mode}"] = c
+        if mode == "sensors":
+            x.extra["bench_render_err"] = _bench_grid_renders(state.env_state)
+        del step, state
+    torch.cuda.empty_cache()
+
+    # (c) the worker CLI, as the orchestrator spawns it
+    mode, n, horizon = BENCH_WORKER
+    t0 = time.perf_counter()
+    res, err = bench.run_worker(mode, n, horizon, BENCH_WORKER_TIMEOUT)
+    if res is None:
+        raise PhaseError(f"bench worker: {err}")
+    keys = {"rate", "mfu", "device_kind", "peak_memory_gb", "flops", "flops_counted", "seconds_per_epoch",
+            "epochs", "launches", "steps_with_rows", "loss", "kl"}
+    print(f"main path: bench (c) worker {mode}@{n}, horizon {horizon} (cut from 64), in "
+          f"{time.perf_counter() - t0:.2f} s with its start: {json.dumps(res)}", flush=True)
+    if set(res) != keys:
+        raise PhaseError(f"bench worker: keys {sorted(res)}, expected {sorted(keys)}")
+    if not all(isinstance(res[k], float) and math.isfinite(res[k]) for k in ("rate", "mfu")):
+        raise PhaseError(f"bench worker: rate {res['rate']} and mfu {res['mfu']} must be finite")
+    want = dict(contact_solver=x.substeps * horizon * res["epochs"], tactile_render=0, camera_render=0)
+    if res["launches"] != want:
+        raise PhaseError(f"bench worker: launches {res['launches']}, expected {want}")
+    out[f"bench worker, {mode}"] = res["launches"]
+
+    # (d) the package's top-level surface on the card: make() and one env step, entry()'s forward
+    import isaacgyminsertion_tpu_torch as port
+    from isaacgyminsertion_tpu_torch.entry import entry
+
+    x.counts_zero()
+    env = port.make("FactoryTaskInsertionTactile", num_envs=N_ENVS)
+    env.reset()
+    obs, rew, _, _ = env.step(np.zeros((N_ENVS, env.num_actions), np.float32))
+    torch.cuda.synchronize()
+    out["package make"] = c = x.counts()
+    if c != dict(contact_solver=x.substeps, tactile_render=0, camera_render=0):
+        raise PhaseError(f"make: one env step launched {c}")
+    if obs["obs"].device.type != "cuda" or not bool(torch.isfinite(obs["obs"]).all() & torch.isfinite(rew).all()):
+        raise PhaseError("make: the env's step is not on the card or not finite")
+    fn, args = entry()
+    mu, value = fn(*args)
+    if mu.device.type != "cuda" or tuple(mu.shape) != (128, env.num_actions) or bool(mu.any() | value.any()):
+        raise PhaseError(f"entry: mu {tuple(mu.shape)} on {mu.device}; on zero rows mu and value must be 0")
+    print(f"package: version {port.__version__}; make(FactoryTaskInsertionTactile, num_envs={N_ENVS}) on "
+          f"{obs['obs'].device}, one step: launches {c}, reward mean {float(rew.mean()):.4f}; entry() forward "
+          f"mu {tuple(mu.shape)}, value {tuple(value.shape)} on {mu.device}", flush=True)
+    return out
+
+
+def _bench_grid_renders(env_state):
+    """Both renderers against their plain versions on the bench's grid: the
+    render_selection at render_capacity 0.75 of the bench's 8192-env state
+    (k = 6,144 envs, 18,432 tactile rows), the kernel on all rows at once, the
+    plain version BENCH_PLAIN_ENVS envs at a time → {kernel: max abs error}."""
+    import torch
+
+    from isaacgyminsertion_tpu_torch.physics.robot import build_kuka_openhand
+    from isaacgyminsertion_tpu_torch.sensors import render_kernels as rk
+    from isaacgyminsertion_tpu_torch.utils import capture
+
+    model, dev = build_kuka_openhand(), env_state.progress.device
+    sel = capture.rank_selections(BENCH_ENVS, 1, 0.75, dev, steps=1)[0][0]
+    inputs = lambda rows: capture.sensor_inputs(model, capture.env_rows(env_state, rows))
+    with torch.no_grad():
+        (t_args, t_kw), (c_args, c_kw) = inputs(sel)
+        k_img = rk.tactile_render_cuda(*t_args, **t_kw)
+        kt, kd, kc = rk.camera_render_cuda(*c_args, **c_kw)
+        torch.cuda.synchronize()
+        del t_args, c_args
+        p_img, p_cam = [], []
+        for i in range(0, len(sel), BENCH_PLAIN_ENVS):
+            (t_args, t_kw), (c_args, c_kw) = inputs(sel[i:i + BENCH_PLAIN_ENVS])
+            p_img.append(rk.tactile_render_plain(*t_args, **t_kw))
+            p_cam.append(rk.camera_render_plain(*c_args, **c_kw))
+        p_img = torch.cat(p_img)
+        pt, pd, pc = (torch.cat(z) for z in zip(*p_cam))
+    e_t, share_t = _compare_images(f"tactile_render exact, the bench's {len(sel)} rows", k_img, p_img)
+    e_c, share_c = _compare_images(f"camera_render exact, the bench's {len(sel)} rows", kt, pt,
+                                   [(kc, pc), (kd, pd)])
+    print(f"kernel vs plain on the bench's grid ({len(sel)} of {BENCH_ENVS} envs of the sensors-on state after "
+          f"its epochs, render_capacity 0.75): tactile_render exact R={k_img.shape[0]} max_abs_err {e_t:.3e}, "
+          f"{share_t:.5%} of pixels flipped; camera_render exact N={kt.shape[0]} max_abs_err {e_c:.3e}, "
+          f"{share_c:.5%} of pixels flipped", flush=True)
+    return {"tactile_render": e_t, "camera_render": e_c}
+
+
 def _traced_steps(profiling, insertion, cfg, model, subs, state, acts, trace_dir):
     """TRACE_STEPS control steps inside `profiling.trace` → the trace's path."""
     import torch
@@ -1723,6 +1902,7 @@ PHASES = {
     "16": lambda x: _deploy_path(x.cli, x.counts_zero, x.counts, x.substeps, x.work),
     "17": _sharded_path,
     "17d": _utilities_path,
+    "18": _bench_path,
 }
 # The main paths run as worker processes of this script (--unit), UNIT_SLOTS at a time
 # on the one card. Each is bound by the host (one Python thread issues every op of a
@@ -1737,6 +1917,7 @@ UNITS = {
     "diffusion and deploy": (("13", "16"), ("collection", "rotating plug and CycleGAN")),
     "rotating plug and CycleGAN": (("10b", "12"), ()),
     "sharded training": (("17",), ()),
+    "bench": (("18",), ()),
     "student training": (("9", "9b"), ()),
     "pbt": (("15",), ()),
     "student_r3 eval": (("6",), ()),
@@ -2193,9 +2374,11 @@ def main():
         for u in units.values():
             results.update(u["phases"].get(p, {}))
     err_rotate = units["rotating plug and CycleGAN"]["extra"]["tactile_err"]
+    err_bench = units["bench"]["extra"]["bench_render_err"]
     for r in kernel_rows:
         if r["name"] == "tactile_render":
             r["max_abs_err"] = max(r["max_abs_err"], err_rotate)
+        r["max_abs_err"] = max(r["max_abs_err"], err_bench.get(r["name"], 0.0))
         r["launches"] = sum(results[p][r["name"]] for p in results)
     fps_single = units["teacher training, grasp resets, sys-id"]["extra"]["train_fps"]
     print(f"sharded training: {units['sharded training']['extra']['sharded_fps']:.1f} env-steps/s summed over 2 "

@@ -6,11 +6,24 @@ mirror it so each function has an obvious counterpart. This package imports
 
 Entry points run on CUDA unless the caller passes `device="cpu"` (the tests
 do); without a GPU and without an explicit CPU request they raise.
+
+Top-level surface, as the JAX package's:
+    isaacgyminsertion_tpu_torch.make("FactoryTaskInsertionTactile", num_envs=...)
 """
 
 from __future__ import annotations
 
 import torch
+
+__version__ = "0.1.0"
+
+
+def make(task_name: str, **kwargs):
+    """A vectorized task env by its reference name (`envs.vec_env.make`);
+    `device=` passes through, and without it the env runs on CUDA."""
+    from .envs.vec_env import make as _make
+
+    return _make(task_name, **kwargs)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -243,11 +243,30 @@ class RemoteInterface:
         return self._call("obs")
 
     def apply_action(self, delta_pos, delta_rot) -> None:
-        self._call("act", delta_pos=np.asarray(delta_pos, np.float32),
-                   delta_rot=np.asarray(delta_rot, np.float32))
+        delta_pos, delta_rot = wire_deltas(delta_pos, delta_rot)
+        self._call("act", delta_pos=delta_pos, delta_rot=delta_rot)
 
     def close(self):
         self.sock.close()
+
+
+def wire_deltas(delta_pos, delta_rot) -> tuple[np.ndarray, np.ndarray]:
+    """The action deltas as the wire carries them (float32)."""
+    return np.asarray(delta_pos, np.float32), np.asarray(delta_rot, np.float32)
+
+
+class WireDeltas:
+    """A HardwareInterface fed the deltas as `RemoteInterface` sends them: a
+    local run through it takes a served run's actions to the bit."""
+
+    def __init__(self, hw):
+        self.hw = hw
+
+    def __getattr__(self, name):
+        return getattr(self.hw, name)
+
+    def apply_action(self, delta_pos, delta_rot) -> None:
+        self.hw.apply_action(*wire_deltas(delta_pos, delta_rot))
 
 
 def serve_hardware(hw, host: str = "127.0.0.1", port: int = 7451,

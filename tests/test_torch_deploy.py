@@ -231,9 +231,12 @@ def test_teacher_player_on_a_cpu_sim_logs_the_schema(sim, tmp_path):
 
 
 def test_loopback_player_matches_the_local_run(sim):
-    """A serve and a 2-step player over RemoteInterface on a CPU SimInterface:
-    the actions of the same player on a local SimInterface of the same seed."""
+    """A serve and a 4-step player over RemoteInterface on a CPU SimInterface:
+    the actions of the same player on a local SimInterface of the same seed
+    (within 1e-5), and to the bit those of a local run fed the deltas as the
+    wire carries them (4 steps: there the plain local run first differs)."""
     player = hp.HardwarePlayer(TEACHER, sim.cfg, device="cpu")
+    steps = 4
     local = []
 
     class Recorder:
@@ -241,7 +244,7 @@ def test_loopback_player_matches_the_local_run(sim):
             local.append(act)
 
     sim.generator.manual_seed(0)
-    player.deploy(sim, num_steps=2, logger=Recorder())
+    player.deploy(sim, num_steps=steps, logger=Recorder())
     remote_acts = []
 
     class RemoteRecorder:
@@ -253,7 +256,7 @@ def test_loopback_player_matches_the_local_run(sim):
     thread = tr.serve_hardware(served, port=0)
     try:
         remote = tr.RemoteInterface(port=thread.server.server_address[1])
-        assert player.deploy(remote, num_steps=2, logger=RemoteRecorder()) == 2
+        assert player.deploy(remote, num_steps=steps, logger=RemoteRecorder()) == steps
         ob = remote.get_observation()
         assert ob["obs"].dtype == np.float32 and ob["eef_pos"].shape == (3,)
         remote.close()
@@ -261,6 +264,18 @@ def test_loopback_player_matches_the_local_run(sim):
         thread.server.shutdown()
         thread.server.server_close()
     np.testing.assert_allclose(np.stack(remote_acts), np.stack(local), rtol=0, atol=1e-5)
+    # the wire carries the deltas as float32 (RemoteInterface.apply_action): a local run fed
+    # float32 deltas takes the served run's actions to the bit
+    local32 = []
+
+    class Recorder32:
+        def add_step(self, ob, act, done=False):
+            local32.append(act)
+
+    wire = hp.SimInterface(sim.cfg, seed=0, device="cpu")
+    wire.generator.manual_seed(0)
+    assert player.deploy(tr.WireDeltas(wire), num_steps=steps, logger=Recorder32()) == steps
+    assert np.array_equal(np.stack(remote_acts), np.stack(local32))
 
 
 def test_diffusion_and_position_players_run_on_a_cpu_sim(tmp_path):

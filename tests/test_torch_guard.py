@@ -57,7 +57,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "data/data_io.py", "algo/collect.py", "algo/offline_runner.py",
                    "algo/tactile_runner.py", "train_supervised.py", "utils/host_build.py", "sysid.py",
                    "pbt/pbt.py", "pbt/mutation.py", "pbt/driver.py", "pbt/run.py", "deploy/calib.py",
-                   "deploy/transport.py", "deploy/hardware_player.py", "deploy/devices.py"):
+                   "deploy/transport.py", "deploy/hardware_player.py", "deploy/devices.py", "bench.py",
+                   "entry.py"):
         assert any(p.endswith(os.path.join(PORT, module)) for p in sources), module
     for path in sources:
         tree = ast.parse(open(path).read(), filename=path)
@@ -392,6 +393,27 @@ def test_slice_ten_entry_points_refuse_the_cpu_unless_asked(tmp_path):
     with pytest.raises(ValueError, match="nccl"):
         mesh.init("nccl", 0, 1, f"file://{tmp_path / 'rdv'}", device="cpu")
     assert not os.path.exists(tmp_path / "v")
+
+
+def test_bench_and_entry_refuse_the_cpu_unless_asked():
+    """The bench's worker and `entry` raise without a GPU and without a CPU
+    request, before any work; importing the package loads no module of it
+    beyond `__init__` (`make` and the bench import lazily)."""
+    import subprocess
+    import sys
+
+    from isaacgyminsertion_tpu_torch import bench
+    from isaacgyminsertion_tpu_torch.entry import entry
+
+    probe = ("import sys, isaacgyminsertion_tpu_torch as p; "
+             "print(sorted(m for m in sys.modules if m.startswith('isaacgyminsertion')))")
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True, cwd=ROOT, check=True)
+    assert out.stdout.strip() == "['isaacgyminsertion_tpu_torch']"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points run on it")
+    for call in (lambda: bench.worker("state", 2, 2), lambda: entry()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_pbt_slurm_dry_run_writes_the_reference_scripts(tmp_path, capsys):
