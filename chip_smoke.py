@@ -1933,19 +1933,9 @@ UNIT_WEIGHT = {"sharded training": 2}
 
 def _counters():
     """→ (counts_zero, counts) over the three kernels' launch counts in this process."""
-    from isaacgyminsertion_tpu_torch.physics import solver_kernel as sk
-    from isaacgyminsertion_tpu_torch.sensors import render_kernels as rk
+    from isaacgyminsertion_tpu_torch.utils import profiling
 
-    def counts_zero():
-        sk.launch_count = 0
-        rk.tactile_launch_count = 0
-        rk.camera_launch_count = 0
-
-    def counts():
-        return dict(contact_solver=sk.launch_count, tactile_render=rk.tactile_launch_count,
-                    camera_render=rk.camera_launch_count)
-
-    return counts_zero, counts
+    return (lambda: profiling.clear_counters("kernels.")), profiling.launches
 
 
 def _device():

@@ -44,7 +44,7 @@ from ..models.actor_critic import ActorCriticSplit
 from ..models.running_mean_std import RMSState, rms_init, rms_normalize, rms_update
 from ..models.student import MultiModalModel, decoder_only_mask, init_student_like_flax
 from ..sensors.camera import SEG_PLUG, SEG_SOCKET
-from ..utils.metrics import Timer
+from ..utils import profiling
 from .ppo import _sync, clip_by_global_norm_, make_optimizer
 
 
@@ -350,8 +350,9 @@ class TrainEpoch:
     permutation's first n_mb · mb_size) or into the reservoir (A's rows
     before B's, offset by A's size); where they are not given they come from
     `state.train_gen`. The phases (`rollout`, `normalizers`, `scatter`,
-    `update`) are methods so that a profiler can take them apart; `timer`
-    sums their host seconds, each phase closed by a device synchronize."""
+    `update`) are methods so that a profiler can take them apart; each is a
+    `profiling.span` closed by a device synchronize, and the metrics hold
+    every span's host seconds over the epoch as `time/<span>_s`."""
 
     def __init__(self, cfg_task: TaskConfig, da_cfg: DAggerConfig, model, subs, teacher: TeacherBundle,
                  gan=None):
@@ -361,7 +362,6 @@ class TrainEpoch:
         self.student_act = make_student_act(cfg_task, da_cfg, teacher)
         self.reservoir = Reservoir(da_cfg.replay_size, da_cfg.replay_stratify, da_cfg.replay_freeze_beta,
                                    da_cfg.beta_anneal_steps) if da_cfg.replay_size > 0 else None
-        self.timer = Timer()
 
     def beta(self, agent_steps: int) -> float:
         """β = clip(1 − agent_steps / beta_anneal_steps, 0, 1), in float32."""
@@ -382,9 +382,10 @@ class TrainEpoch:
         c = self.da_cfg
         obs, stud_obs = env_state.obs_queue, env_state.obs_stud_queue
         priv = insertion.priv_info_of(self.cfg_task, self.model, env_state)
-        t_actions, latent_gt = self.teacher_act(obs, priv)
-        prev_out = _prev_out_of(env_state, self.cfg_task)._replace(priv_info=priv)
-        s_actions, _ = self.student_act(state.student(), stud_obs, prev_out)
+        with profiling.span("rollout.policy"):
+            t_actions, latent_gt = self.teacher_act(obs, priv)
+            prev_out = _prev_out_of(env_state, self.cfg_task)._replace(priv_info=priv)
+            s_actions, _ = self.student_act(state.student(), stud_obs, prev_out)
         beta = self.beta(agent_steps)
         if not c.use_tactile and agent_steps < c.teacher_only_steps:
             mixed = t_actions          # the teacher-only window
@@ -475,13 +476,14 @@ class TrainEpoch:
             idx = idx.reshape(-1)[: n_mb * mb_size].reshape(n_mb, mb_size)
             out = []
             for i in range(n_mb):
-                mb = {key: v[idx[i]].float() if v.dtype == torch.float16 else v[idx[i]]
-                      for key, v in source.items()}
-                loss, aux = self.loss(student, mb)
-                optimizer.zero_grad(set_to_none=False)
-                loss.backward()
-                clip_by_global_norm_(params, self.da_cfg.grad_norm)
-                optimizer.step()
+                with profiling.span("update.adam_step"):
+                    mb = {key: v[idx[i]].float() if v.dtype == torch.float16 else v[idx[i]]
+                          for key, v in source.items()}
+                    loss, aux = self.loss(student, mb)
+                    optimizer.zero_grad(set_to_none=False)
+                    loss.backward()
+                    clip_by_global_norm_(params, self.da_cfg.grad_norm)
+                    optimizer.step()
                 aux["loss"] = loss
                 out.append(torch.stack([v.detach() for v in aux.values()]))
             per_epoch.append(torch.stack(out).mean(0))
@@ -489,16 +491,15 @@ class TrainEpoch:
 
     # ------------------------------------------------------------ epoch
     def _phase(self, name: str, dev, fn, *args, **kw):
-        """fn(*args), its host seconds (to the device's end) added to timer[name]."""
-        self.timer.start(name)
-        out = fn(*args, **kw)
-        _sync(dev)
-        self.timer.stop(name)
+        """fn(*args) in the span `name`, closed by a device synchronize."""
+        with profiling.span(name):
+            out = fn(*args, **kw)
+            _sync(dev)
         return out
 
     def __call__(self, state: DAggerState, mix=None, res_u=None, res_u_a=None, rows=None):
-        timer, dev = self.timer, state.stud_obs_rms.mean.device
-        before = dict(timer.totals)
+        dev = state.stud_obs_rms.mean.device
+        before = profiling.spans()
         env_state, traj, roll, betas = self._phase("rollout", dev, self.rollout, state, mix)
         stud_obs_rms, pcl_rms = self._phase("normalizers", dev, self.normalizers, state, traj)
         n_rows = traj["obs"].shape[0] * traj["obs"].shape[1]
@@ -515,7 +516,7 @@ class TrainEpoch:
         names = list(metrics)
         metrics = dict(zip(names, torch.stack([metrics[k].float() for k in names]).tolist()))
         metrics["episode/beta"] = float(np.mean(np.asarray(betas, np.float32)))
-        for phase, total in timer.totals.items():
-            metrics[f"time/{phase}_s"] = total - before.get(phase, 0.0)
+        for name, seconds in profiling.spans_since(before).items():
+            metrics[f"time/{name}_s"] = seconds
         return state._replace(stud_obs_rms=stud_obs_rms, pcl_rms=pcl_rms, env_state=env_state,
                               epoch=state.epoch + 1, agent_steps=state.agent_steps + n_rows), metrics

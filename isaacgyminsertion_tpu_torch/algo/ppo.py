@@ -61,7 +61,7 @@ from ..models.running_mean_std import (
     rms_unnormalize,
 )
 from ..parallel import mesh
-from ..utils.metrics import Timer
+from ..utils import profiling
 
 
 @dataclass(frozen=True)
@@ -236,8 +236,9 @@ class TrainEpoch:
     the permutations when it is set). With `dp` the noise is this rank's
     [N / W, A] rows and the permutations are of the global B. The phases
     (`rollout`, `advantages`, `normalizers`, `batch`, `update`) are methods so
-    that a profiler can take them apart; `timer` sums their host seconds,
-    each phase closed by a device synchronize. `render_rows` keeps the last
+    that a profiler can take them apart; each is a `profiling.span` closed by
+    a device synchronize, and the metrics hold every span's host seconds over
+    the epoch as `time/<span>_s`. `render_rows` keeps the last
     rollout's (tactile rows, camera rows) that this process rendered at each
     step, as host ints."""
 
@@ -246,7 +247,6 @@ class TrainEpoch:
         self.cfg_task, self.ppo_cfg, self.model, self.subs = cfg_task, ppo_cfg, model, subs
         self.grasp_data = grasp_data
         self.dp = dp
-        self.timer = Timer()
         self.render_rows = []
 
     # ------------------------------------------------ global reductions (dp)
@@ -278,10 +278,11 @@ class TrainEpoch:
         obs = env_state.obs_queue
         succ_pre = env_state.success_reset_buf.float()
         priv = insertion.priv_info_of(self.cfg_task, self.model, env_state)
-        mu, log_std, value_n, _, _ = net(rms_normalize(state.obs_rms, obs),
-                                         rms_normalize(state.priv_rms, priv))
-        actions, neglogp = sample_actions(mu, log_std, state.train_gen, noise=eps)
-        value = self._unnorm_value(state.value_rms, value_n)
+        with profiling.span("rollout.policy"):
+            mu, log_std, value_n, _, _ = net(rms_normalize(state.obs_rms, obs),
+                                             rms_normalize(state.priv_rms, priv))
+            actions, neglogp = sample_actions(mu, log_std, state.train_gen, noise=eps)
+            value = self._unnorm_value(state.value_rms, value_n)
         env_state, out = insertion.step(self.cfg_task, self.model, self.subs, env_state,
                                         torch.clamp(actions, -1.0, 1.0), state.env_gen,
                                         grasp_data=self.grasp_data, dp=self.dp)
@@ -447,17 +448,18 @@ class TrainEpoch:
                 perm, owned = self._local_rows(perm, batch["obs"].shape[0])
             rows = []
             for i in range(n_mb):
-                idx = perm[i] if dp is None else perm[i][owned[i]]
-                mb = {key: v[idx] for key, v in batch.items()}
-                loss, aux = self.loss(state, obs_rms, priv_rms, mb,
-                                      rows=None if dp is None else mb_size)
-                opt.zero_grad(set_to_none=False)
-                loss.backward()
-                _all_reduce_grads(params, dp)
-                for p in frozen:   # critic warmup: only the critic's gradients count
-                    p.grad.zero_()
-                clip_by_global_norm_(params, c.grad_norm)
-                opt.step()
+                with profiling.span("update.adam_step"):
+                    idx = perm[i] if dp is None else perm[i][owned[i]]
+                    mb = {key: v[idx] for key, v in batch.items()}
+                    loss, aux = self.loss(state, obs_rms, priv_rms, mb,
+                                          rows=None if dp is None else mb_size)
+                    opt.zero_grad(set_to_none=False)
+                    loss.backward()
+                    _all_reduce_grads(params, dp)
+                    for p in frozen:   # critic warmup: only the critic's gradients count
+                        p.grad.zero_()
+                    clip_by_global_norm_(params, c.grad_norm)
+                    opt.step()
                 aux["loss"] = loss
                 rows.append(torch.stack([v.detach() for v in aux.values()]))
             per_epoch.append(torch.stack(rows).mean(0))
@@ -475,17 +477,16 @@ class TrainEpoch:
 
     # ------------------------------------------------------------ epoch
     def _phase(self, name: str, dev, fn, *args):
-        """fn(*args), its host seconds (to the device's end) added to timer[name]."""
-        self.timer.start(name)
-        out = fn(*args)
-        _sync(dev)
-        self.timer.stop(name)
+        """fn(*args) in the span `name`, closed by a device synchronize."""
+        with profiling.span(name):
+            out = fn(*args)
+            _sync(dev)
         return out
 
     def __call__(self, state: PPOState, noise=None, perms=None):
-        c, timer = self.ppo_cfg, self.timer
+        c = self.ppo_cfg
         dev = state.obs_rms.mean.device
-        before = dict(timer.totals)
+        before = profiling.spans()
         env_state, traj, roll = self._phase("rollout", dev, self.rollout, state, noise)
         advs, returns = self._phase("advantages", dev, self.advantages, state, env_state, traj)
         obs_rms, priv_rms, value_rms = self._phase("normalizers", dev, self.normalizers, state, traj,
@@ -506,8 +507,8 @@ class TrainEpoch:
             new_lr = min(max(new_lr, 1e-6), 1e-2)
             set_lr(state.optimizer, new_lr)
             metrics["info/lr"] = new_lr
-        for phase, total in timer.totals.items():
-            metrics[f"time/{phase}_s"] = total - before.get(phase, 0.0)
+        for name, seconds in profiling.spans_since(before).items():
+            metrics[f"time/{name}_s"] = seconds
         n_envs = traj.obs.shape[1] * mesh.size(self.dp)
         return state._replace(obs_rms=obs_rms, priv_rms=priv_rms, value_rms=value_rms,
                               env_state=env_state, epoch=state.epoch + 1,

@@ -106,15 +106,6 @@ def build_epoch(cfg, n_envs, horizon=64, device=None):
     return train_epoch, state, ppo_cfg
 
 
-def launches() -> dict:
-    """The three kernels' launch counts in this process."""
-    from .physics import solver_kernel as sk
-    from .sensors import render_kernels as rk
-
-    return dict(contact_solver=sk.launch_count, tactile_render=rk.tactile_launch_count,
-                camera_render=rk.camera_launch_count)
-
-
 def measure(step, state, n_envs, horizon, epochs=3):
     """One warm-up epoch (the kernels build on first use; its FLOPs are
     counted), then `epochs` timed ones → (the worker's line: rate, mfu, the
@@ -122,6 +113,8 @@ def measure(step, state, n_envs, horizon, epochs=3):
     rendered rows; the final state; the last epoch's metrics)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
+
+    from .utils.profiling import launches
 
     dev = state.obs_rms.mean.device
     cuda = dev.type == "cuda"

@@ -34,6 +34,14 @@ gathered rows where only those are rendered. Under data parallelism
 global batch) the rows to render are selected over the global batch, as the
 single process selects them, and each rank renders the selected rows that it
 owns; `extras["render_rows"]` says how many each renderer drew here.
+
+Spans and counters (`utils.profiling`): `env` is the step; inside it
+`env.sync` is its one host sync (does any env reset?), `env.reset` the
+resets, `physics` the engine's step, `sensors` the sensor step with
+`sensors.tactile` and `sensors.camera` (the point cloud included);
+`sensors.rows_rendered` counts the rows each renderer drew, and
+`sensors.rows_consumed` those of them whose fresh frame a consumer takes
+this step (a device count, kept only while tracing is on).
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from ..sensors import contact_gt as cgt_mod
 from ..sensors import pcl as pcl_mod
 from ..sensors import tactile as tact_mod
 from ..parallel import mesh
+from ..utils import profiling
 from . import dr as dr_mod
 from .config import TaskConfig
 
@@ -599,7 +608,12 @@ def step(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, state: EnvSta
     `grasp_data` makes the resets replay a grasp-dataset table; `gan`, a
     `ResnetGenerator`, translates the rendered tactile frames sim → real;
     `dp` makes `state` this rank's rows of a data-parallel batch (only the
-    render-on-demand selection looks past them)."""
+    render-on-demand selection looks past them). The step is the span `env`."""
+    with profiling.span("env"):
+        return _step(cfg, model, subs, state, policy_actions, generator, grasp_data, gan, dp)
+
+
+def _step(cfg, model, subs, state, policy_actions, generator, grasp_data, gan, dp):
     gen = generator
     n = policy_actions.shape[0]
     dev = policy_actions.device
@@ -607,8 +621,11 @@ def step(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, state: EnvSta
     e = cfg.env
 
     # ---------------- pre-physics: reset done envs (rare: skipped on the host)
-    if bool(state.reset_buf.any()):
-        state = _reset_idx(cfg, model, subs, state, state.reset_buf, gen, grasp_data=grasp_data)
+    with profiling.span("env.sync"):
+        any_reset = bool(state.reset_buf.any())
+    if any_reset:
+        with profiling.span("env.reset"):
+            state = _reset_idx(cfg, model, subs, state, state.reset_buf, gen, grasp_data=grasp_data)
     gs = state.global_step
 
     # action DR noise (white + correlated, held per randomization window)
@@ -714,8 +731,9 @@ def step(cfg: TaskConfig, model: RobotModel, subs: SubassemblySet, state: EnvSta
                          + ema * state.finger_forces_ema)
 
     # ---------------- sensor modalities (decimation + delay)
-    queues, render_overflow, render_rows = _sensor_step(cfg, model, subs, state, phys, fk2, ftc_t2,
-                                                        frame, progress, finger_forces_ema, gen, gan, dp)
+    with profiling.span("sensors"):
+        queues, render_overflow, render_rows = _sensor_step(cfg, model, subs, state, phys, fk2, ftc_t2,
+                                                            frame, progress, finger_forces_ema, gen, gan, dp)
 
     # ---------------- observation staleness (decimation + delay)
     refresh = ((frame + state.plug_pose_refresh_offset) % state.plug_pose_refresh_rate) == 0
@@ -838,6 +856,11 @@ def render_selection(prio: torch.Tensor, capacity: float, global_step: int, dp=N
     return sel[(sel >= lo) & (sel < hi)] - lo
 
 
+def _rows_consumed(consume, sel):
+    """The rendered rows (the selection `sel`, or every row) in `consume`."""
+    return consume.sum() if sel is None else consume[sel].sum()
+
+
 def _sensor_step(cfg, model, subs, state: EnvState, phys: PhysicsState, fk2, ftc_t2, frame,
                  progress, finger_forces_ema, gen, gan=None, dp=None):
     """Render the sensor modalities that are on and push them into their
@@ -880,93 +903,99 @@ def _sensor_step(cfg, model, subs, state: EnvState, phys: PhysicsState, fk2, ftc
         return out
 
     if e.tactile:
-        t_refresh = ((frame + state.tactile_refresh_offset) % state.tactile_refresh_rate) == 0
-        t_upd = t_refresh & (rand() > e.tactile_delay_prob)
-        tip_q3, tip_t3 = engine.fingertip_poses(model, fk2)
-        # the gel-scene plug is scaled by the asset's scale column
-        psc = params.plug_scale
-        sel_t = render_sel(torch.where(t_upd, 0, 1)) if use_sel else None
-        if use_sel:
-            render_overflow = render_overflow + overflow_of(sel_t, t_upd)
-        gt = (lambda x: x[sel_t]) if use_sel else (lambda x: x)
-        tq = state.tactile_queue
-        render_rows[0] = n if sel_t is None else sel_t.shape[0]
-        if render_rows[0] == 0:   # a rank that owns none of the selected rows
-            queues["tactile_queue"] = _push(tq[:, 0], tq)
-        else:
-            timg = tact_mod.render_tactile(
-                tact_mod.TactileConfig(), gt(tip_q3), gt(tip_t3), gt(phys.plug_quat), gt(phys.plug_pos),
-                gt(params.kind_onehot), gt(params.plug_hx * psc), gt(params.plug_hy * psc),
-                gt(params.plug_length * psc), gt(finger_forces_ema), generator=gen, noise_std=0.01)
-            if gan is not None:
-                # CycleGAN sim→real on the rendered frames; the generator is tanh-ranged
-                out_g = gan(timg.reshape((-1,) + timg.shape[2:]) * 2.0 - 1.0)
-                timg = (out_g.reshape(timg.shape) + 1.0) * 0.5
-            queues["tactile_queue"] = _push(latest_of(sel_t, t_upd, timg.to(tq.dtype), tq[:, 0]), tq)
+        with profiling.span("sensors.tactile"):
+            t_refresh = ((frame + state.tactile_refresh_offset) % state.tactile_refresh_rate) == 0
+            t_upd = t_refresh & (rand() > e.tactile_delay_prob)
+            tip_q3, tip_t3 = engine.fingertip_poses(model, fk2)
+            # the gel-scene plug is scaled by the asset's scale column
+            psc = params.plug_scale
+            sel_t = render_sel(torch.where(t_upd, 0, 1)) if use_sel else None
+            if use_sel:
+                render_overflow = render_overflow + overflow_of(sel_t, t_upd)
+            gt = (lambda x: x[sel_t]) if use_sel else (lambda x: x)
+            tq = state.tactile_queue
+            render_rows[0] = n if sel_t is None else sel_t.shape[0]
+            profiling.count("sensors.rows_rendered", render_rows[0])
+            profiling.count("sensors.rows_consumed", lambda: _rows_consumed(t_upd, sel_t))
+            if render_rows[0] == 0:   # a rank that owns none of the selected rows
+                queues["tactile_queue"] = _push(tq[:, 0], tq)
+            else:
+                timg = tact_mod.render_tactile(
+                    tact_mod.TactileConfig(), gt(tip_q3), gt(tip_t3), gt(phys.plug_quat), gt(phys.plug_pos),
+                    gt(params.kind_onehot), gt(params.plug_hx * psc), gt(params.plug_hy * psc),
+                    gt(params.plug_length * psc), gt(finger_forces_ema), generator=gen, noise_std=0.01)
+                if gan is not None:
+                    # CycleGAN sim→real on the rendered frames; the generator is tanh-ranged
+                    out_g = gan(timg.reshape((-1,) + timg.shape[2:]) * 2.0 - 1.0)
+                    timg = (out_g.reshape(timg.shape) + 1.0) * 0.5
+                queues["tactile_queue"] = _push(latest_of(sel_t, t_upd, timg.to(tq.dtype), tq[:, 0]), tq)
     if e.external_cam:
-        ccfg = cam_mod.CameraConfig()
-        i_refresh = ((frame + state.img_refresh_offset) % state.img_refresh_rate) == 0
-        initial = progress < 10
-        i_upd = i_refresh & (initial | (rand() > e.img_delay_prob))
-        s_upd = i_refresh & (initial | (rand() > e.seg_delay_prob))
-        # one gathered row set serves depth+seg+pcl (all consume on i_refresh);
-        # `initial` rows rank first: they must render at least once inside the
-        # 10-step post-reset window for the frozen socket-pcl capture
-        sel_c = render_sel(torch.where(initial, 0, torch.where(i_refresh, 1, 2))) if use_sel else None
-        if use_sel:
-            render_overflow = render_overflow + overflow_of(sel_c, initial | i_upd | s_upd)
-        render_rows[1] = n if sel_c is None else sel_c.shape[0]
-        if render_rows[1] == 0:   # a rank that owns none of the selected rows
-            for name, on in (("img_queue", e.depth_cam), ("seg_queue", e.seg_cam),
-                             ("pcl_queue", e.pcl_cam)):
-                if on:
-                    queues[name] = _push(queues[name][:, 0], queues[name])
-        else:
-            gc = (lambda x: x[sel_c]) if use_sel else (lambda x: x)
-            # the descending hand occludes the scene in the depth/seg frames: proxy
-            # it as 3 fingertip spheres (12 mm) + a wrist→palm capsule (32 mm) that
-            # ends at the palm, 55% of the way from the fingertips to the wrist, so
-            # the grasped plug reads through the finger gaps
-            cam_tips = engine.fingertip_poses(model, fk2)[1]
-            cam_wrist = fk2.body_t[..., 6, :]
-            cam_palm = ftc_t2 + 0.55 * (cam_wrist - ftc_t2)
-            depth_n, seg_im, depth_raw = cam_mod.render_depth_seg(
-                ccfg, gc(phys.plug_quat), gc(phys.plug_pos), gc(params.socket_quat),
-                gc(params.socket_pos), gc(params.kind_onehot), gc(params.plug_hx), gc(params.plug_hy),
-                gc(params.plug_length), gc(params.hole_hx), gc(params.hole_hy),
-                gc(params.socket_height), gc(params.table_height), generator=gen,
-                tip_pos=gc(cam_tips), wrist_pos=gc(cam_wrist), hand_pos=gc(cam_palm),
-                tip_radius=0.012, hand_radius=0.032)
-            nr = seg_im.shape[0]
-            if e.depth_cam:
-                iq = state.img_queue
-                queues["img_queue"] = _push(latest_of(sel_c, i_upd, depth_n.to(iq.dtype), iq[:, 0]), iq)
-            if e.seg_cam:
-                sq = state.seg_queue
-                noisy = gc(~initial) & (torch.rand((nr,), generator=gen, device=dev) > 1 - e.seg_prob_noise)
-                seg_noisy = torch.where(noisy[:, None, None],
-                                        cam_mod.seg_noise(seg_im, gen, e.seg_prob_noise), seg_im)
-                queues["seg_queue"] = _push(latest_of(sel_c, s_upd, seg_noisy.to(sq.dtype), sq[:, 0]), sq)
-            if e.pcl_cam:
-                pq = state.pcl_queue
-                dense = const(subs.dense_points, dev)[gc(state.sub_idx)]
-                goal_pts = gc(params.socket_pos)[:, None, :] + rot.quat_apply(
-                    gc(params.socket_quat)[:, None, :], dense)
-                merged = pcl_mod.assemble_scene_pcl(
-                    ccfg, depth_raw, seg_im, goal_pts, gen, num_plug=e.num_points,
-                    num_socket=e.num_points_socket, num_goal=e.num_points_goal,
-                    include_plug=e.include_plug_pcl, merge_socket=e.merge_socket_pcl,
-                    merge_goal=e.merge_goal_pcl, include_all=e.include_all_pcl)
-                if e.merge_socket_pcl and e.include_plug_pcl:
-                    # the socket slice is captured once per episode (progress < 10,
-                    # before the descending plug occludes it) and then frozen
-                    s0, s1 = e.num_points, e.num_points + e.num_points_socket
-                    sock = _where(gc(initial), merged[:, s0:s1], gc(pq[:, 0, s0:s1]))
-                    merged = torch.cat([merged[:, :s0], sock, merged[:, s1:]], dim=1)
-                p_noise_on = gc(~initial) & (torch.rand((nr,), generator=gen, device=dev)
-                                             > 1 - e.pcl_prob_noise)
-                merged = pcl_mod.augment_pcl(merged, gen, pcl_mod.PclAugmentConfig(), p_noise_on)
-                queues["pcl_queue"] = _push(latest_of(sel_c, i_upd, merged, pq[:, 0]), pq)
+        with profiling.span("sensors.camera"):
+            ccfg = cam_mod.CameraConfig()
+            i_refresh = ((frame + state.img_refresh_offset) % state.img_refresh_rate) == 0
+            initial = progress < 10
+            i_upd = i_refresh & (initial | (rand() > e.img_delay_prob))
+            s_upd = i_refresh & (initial | (rand() > e.seg_delay_prob))
+            # one gathered row set serves depth+seg+pcl (all consume on i_refresh);
+            # `initial` rows rank first: they must render at least once inside the
+            # 10-step post-reset window for the frozen socket-pcl capture
+            sel_c = render_sel(torch.where(initial, 0, torch.where(i_refresh, 1, 2))) if use_sel else None
+            if use_sel:
+                render_overflow = render_overflow + overflow_of(sel_c, initial | i_upd | s_upd)
+            render_rows[1] = n if sel_c is None else sel_c.shape[0]
+            profiling.count("sensors.rows_rendered", render_rows[1])
+            profiling.count("sensors.rows_consumed", lambda: _rows_consumed(initial | i_upd | s_upd, sel_c))
+            if render_rows[1] == 0:   # a rank that owns none of the selected rows
+                for name, on in (("img_queue", e.depth_cam), ("seg_queue", e.seg_cam),
+                                 ("pcl_queue", e.pcl_cam)):
+                    if on:
+                        queues[name] = _push(queues[name][:, 0], queues[name])
+            else:
+                gc = (lambda x: x[sel_c]) if use_sel else (lambda x: x)
+                # the descending hand occludes the scene in the depth/seg frames: proxy
+                # it as 3 fingertip spheres (12 mm) + a wrist→palm capsule (32 mm) that
+                # ends at the palm, 55% of the way from the fingertips to the wrist, so
+                # the grasped plug reads through the finger gaps
+                cam_tips = engine.fingertip_poses(model, fk2)[1]
+                cam_wrist = fk2.body_t[..., 6, :]
+                cam_palm = ftc_t2 + 0.55 * (cam_wrist - ftc_t2)
+                depth_n, seg_im, depth_raw = cam_mod.render_depth_seg(
+                    ccfg, gc(phys.plug_quat), gc(phys.plug_pos), gc(params.socket_quat),
+                    gc(params.socket_pos), gc(params.kind_onehot), gc(params.plug_hx), gc(params.plug_hy),
+                    gc(params.plug_length), gc(params.hole_hx), gc(params.hole_hy),
+                    gc(params.socket_height), gc(params.table_height), generator=gen,
+                    tip_pos=gc(cam_tips), wrist_pos=gc(cam_wrist), hand_pos=gc(cam_palm),
+                    tip_radius=0.012, hand_radius=0.032)
+                nr = seg_im.shape[0]
+                if e.depth_cam:
+                    iq = state.img_queue
+                    queues["img_queue"] = _push(latest_of(sel_c, i_upd, depth_n.to(iq.dtype), iq[:, 0]), iq)
+                if e.seg_cam:
+                    sq = state.seg_queue
+                    noisy = gc(~initial) & (torch.rand((nr,), generator=gen, device=dev) > 1 - e.seg_prob_noise)
+                    seg_noisy = torch.where(noisy[:, None, None],
+                                            cam_mod.seg_noise(seg_im, gen, e.seg_prob_noise), seg_im)
+                    queues["seg_queue"] = _push(latest_of(sel_c, s_upd, seg_noisy.to(sq.dtype), sq[:, 0]), sq)
+                if e.pcl_cam:
+                    pq = state.pcl_queue
+                    dense = const(subs.dense_points, dev)[gc(state.sub_idx)]
+                    goal_pts = gc(params.socket_pos)[:, None, :] + rot.quat_apply(
+                        gc(params.socket_quat)[:, None, :], dense)
+                    merged = pcl_mod.assemble_scene_pcl(
+                        ccfg, depth_raw, seg_im, goal_pts, gen, num_plug=e.num_points,
+                        num_socket=e.num_points_socket, num_goal=e.num_points_goal,
+                        include_plug=e.include_plug_pcl, merge_socket=e.merge_socket_pcl,
+                        merge_goal=e.merge_goal_pcl, include_all=e.include_all_pcl)
+                    if e.merge_socket_pcl and e.include_plug_pcl:
+                        # the socket slice is captured once per episode (progress < 10,
+                        # before the descending plug occludes it) and then frozen
+                        s0, s1 = e.num_points, e.num_points + e.num_points_socket
+                        sock = _where(gc(initial), merged[:, s0:s1], gc(pq[:, 0, s0:s1]))
+                        merged = torch.cat([merged[:, :s0], sock, merged[:, s1:]], dim=1)
+                    p_noise_on = gc(~initial) & (torch.rand((nr,), generator=gen, device=dev)
+                                                 > 1 - e.pcl_prob_noise)
+                    merged = pcl_mod.augment_pcl(merged, gen, pcl_mod.PclAugmentConfig(), p_noise_on)
+                    queues["pcl_queue"] = _push(latest_of(sel_c, i_upd, merged, pq[:, 0]), pq)
     if e.compute_contact_gt:
         dense = const(subs.dense_points, dev)[state.sub_idx]
         contacts = cgt_mod.extrinsic_contact(

@@ -38,9 +38,8 @@ import torch
 from ..algo import ppo
 from ..assets import build_subassembly_set
 from ..envs.config import TaskConfig, default_task_config
-from ..physics import solver_kernel as sk
 from ..physics.robot import build_kuka_openhand
-from ..sensors import render_kernels as rk
+from ..utils import profiling
 from . import mesh
 
 SENSOR_QUEUES = {"tactile_queue": (0.0, 1.0), "img_queue": (-1.0, 0.0), "seg_queue": (0.0, 3.0),
@@ -86,14 +85,11 @@ def state_digest(state: ppo.PPOState) -> str:
 
 
 def _zero_counts():
-    sk.launch_count = 0
-    rk.tactile_launch_count = 0
-    rk.camera_launch_count = 0
+    profiling.clear_counters("kernels.")
 
 
 def _counts() -> dict:
-    return dict(contact_solver=sk.launch_count, tactile_render=rk.tactile_launch_count,
-                camera_render=rk.camera_launch_count)
+    return profiling.launches()
 
 
 def _sync(dev):

@@ -10,6 +10,11 @@ each with
 The contact solve dispatches on the tensors' device: CUDA tensors go to the
 hand-written CUDA kernel, CPU tensors to its plain PyTorch version
 (`solver_kernel.solve_contacts_fused`).
+
+Spans (`utils.profiling`): `physics` is `step`; inside it each substep's
+`physics.dynamics` (the robot's FK, Jacobians, mass matrix and bias forces,
+and the plug's free velocity) and `physics.contacts` (contact generation,
+with its autograd SDF gradients).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 
 from ..ops import const
 from ..ops import rotations as rot
+from ..utils import profiling
 from .contact import (
     PATCH_POINTS,
     MaterialParams,
@@ -172,43 +178,45 @@ class _Prepared(NamedTuple):
 
 def _prepare(model, params: PhysicsParams, state: PhysicsState, ctrl: ControlInput, h: float):
     """Everything a substep computes before the contact solve."""
-    fk, J, _fk_dot, J_dot = fk_jacobians_with_tangents(model, state.q, state.qd)
-    M = mass_matrix(model, state.q, fk=fk, J=J)
-    C = bias_forces(model, state.q, state.qd, gravity=0.0, fk=fk, J=J, J_dot=J_dot)
+    with profiling.span("physics.dynamics"):
+        fk, J, _fk_dot, J_dot = fk_jacobians_with_tangents(model, state.q, state.qd)
+        M = mass_matrix(model, state.q, fk=fk, J=J)
+        C = bias_forces(model, state.q, state.qd, gravity=0.0, fk=fk, J=J, J_dot=J_dot)
 
-    _tip_q, tip_t = fingertip_poses(model, fk)
-    Jtips = torch.stack([point_jacobian(model, fk, tip_t[..., i, :], FINGER_BODIES[i])
-                         for i in range(3)], dim=-3)                      # [N, 3, 6, nd]
-    tip_vel = torch.einsum("...fij,...j->...fi", Jtips[..., :3, :], state.qd)
-    com_w = _com_of(state, params)
+        _tip_q, tip_t = fingertip_poses(model, fk)
+        Jtips = torch.stack([point_jacobian(model, fk, tip_t[..., i, :], FINGER_BODIES[i])
+                             for i in range(3)], dim=-3)                      # [N, 3, 6, nd]
+        tip_vel = torch.einsum("...fij,...j->...fi", Jtips[..., :3, :], state.qd)
+        com_w = _com_of(state, params)
 
-    # ---- free-velocity update (gravity + disturbance wrench)
-    m = params.plug_mass[..., None]
-    zg = torch.zeros_like(params.gravity)
-    g_vec = torch.stack([zg, zg, params.gravity], dim=-1)
-    Iw = _plug_inertia_world(state.plug_quat, params.plug_inertia)
-    I_inv_w = _plug_inertia_world(state.plug_quat, params.plug_inertia, inverse=True)
-    gyro = torch.linalg.cross(state.plug_w, torch.einsum("...ij,...j->...i", Iw, state.plug_w))
-    # light linear/angular damping (sim.add_damping)
-    damp = torch.exp(torch.tensor(-1.0 * h, dtype=state.plug_v.dtype, device=state.plug_v.device))
-    v_free = state.plug_v * damp + h * (g_vec + ctrl.plug_wrench[..., :3] / m)
-    w_free = state.plug_w * damp + h * torch.einsum(
-        "...ij,...j->...i", I_inv_w, ctrl.plug_wrench[..., 3:] - gyro)
+        # ---- free-velocity update (gravity + disturbance wrench)
+        m = params.plug_mass[..., None]
+        zg = torch.zeros_like(params.gravity)
+        g_vec = torch.stack([zg, zg, params.gravity], dim=-1)
+        Iw = _plug_inertia_world(state.plug_quat, params.plug_inertia)
+        I_inv_w = _plug_inertia_world(state.plug_quat, params.plug_inertia, inverse=True)
+        gyro = torch.linalg.cross(state.plug_w, torch.einsum("...ij,...j->...i", Iw, state.plug_w))
+        # light linear/angular damping (sim.add_damping)
+        damp = torch.exp(torch.tensor(-1.0 * h, dtype=state.plug_v.dtype, device=state.plug_v.device))
+        v_free = state.plug_v * damp + h * (g_vec + ctrl.plug_wrench[..., :3] / m)
+        w_free = state.plug_w * damp + h * torch.einsum(
+            "...ij,...j->...i", I_inv_w, ctrl.plug_wrench[..., 3:] - gyro)
 
     # ---- contact generation
-    cs_fing, _aux = fingertip_plug_contacts(
-        tip_t, tip_vel, state.plug_quat, state.plug_pos, com_w, params.kind_onehot,
-        params.plug_hx, params.plug_hy, params.plug_length, params.contact)
-    from ..assets import SOCKET_PT_COUNT, TABLE_PT_IDX
+    with profiling.span("physics.contacts"):
+        cs_fing, _aux = fingertip_plug_contacts(
+            tip_t, tip_vel, state.plug_quat, state.plug_pos, com_w, params.kind_onehot,
+            params.plug_hx, params.plug_hy, params.plug_length, params.contact)
+        from ..assets import SOCKET_PT_COUNT, TABLE_PT_IDX
 
-    tbl_idx = const(TABLE_PT_IDX, params.surface_points.device, torch.long)
-    cs_env = plug_env_contacts(
-        params.surface_points[:, :SOCKET_PT_COUNT], params.surface_weights[:, :SOCKET_PT_COUNT],
-        params.surface_points[:, tbl_idx], params.surface_weights[:, tbl_idx],
-        state.plug_quat, state.plug_pos, com_w, params.socket_quat, params.socket_pos,
-        params.kind_onehot, params.hole_hx, params.hole_hy, params.socket_height,
-        params.table_height, params.contact)
-    cs = concat_contacts(cs_fing, cs_env)  # finger patches occupy slots [0:3*PATCH_POINTS]
+        tbl_idx = const(TABLE_PT_IDX, params.surface_points.device, torch.long)
+        cs_env = plug_env_contacts(
+            params.surface_points[:, :SOCKET_PT_COUNT], params.surface_weights[:, :SOCKET_PT_COUNT],
+            params.surface_points[:, tbl_idx], params.surface_weights[:, tbl_idx],
+            state.plug_quat, state.plug_pos, com_w, params.socket_quat, params.socket_pos,
+            params.kind_onehot, params.hole_hx, params.hole_hy, params.socket_height,
+            params.table_height, params.contact)
+        cs = concat_contacts(cs_fing, cs_env)  # finger patches occupy slots [0:3*PATCH_POINTS]
     return _Prepared(M, C, Jtips, com_w, I_inv_w.contiguous(), v_free.contiguous(),
                      w_free.contiguous(), cs)
 
@@ -262,7 +270,8 @@ def step(model: RobotModel, params: PhysicsParams, state: PhysicsState, ctrl: Co
     forces are EMA-filtered across substeps with `smooth_force`."""
     h = dt / n_substeps
     st, tipf = state, state.tip_forces
-    for _ in range(n_substeps):
-        st = substep(model, params, st, ctrl, h, solver_iters=solver_iters)
-        tipf = smooth_force * tipf + (1.0 - smooth_force) * st.tip_forces
+    with profiling.span("physics"):
+        for _ in range(n_substeps):
+            st = substep(model, params, st, ctrl, h, solver_iters=solver_iters)
+            tipf = smooth_force * tipf + (1.0 - smooth_force) * st.tip_forces
     return st._replace(tip_forces=tipf)

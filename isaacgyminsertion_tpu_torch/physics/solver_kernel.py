@@ -19,14 +19,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
 from ..utils.cuda_build import CudaKernel
 from .solver import ContactSet, position_correction, solve_contacts
 
 KERNEL_NAME = "contact_solver"
 MAX_CONTACTS = 256
-
-# Launches of the CUDA kernel, counted where the wrapper launches it.
-launch_count = 0
 
 # f32 operations per contact, counted from csrc/contact_solver.cu (a
 # division, a sqrt, a min/max and a select count as one each): a velocity
@@ -102,8 +100,8 @@ def _check(name, t, shape, device):
 def solve_contacts_fused_cuda(mass, I_inv_w, v, w, cs: ContactSet, h: float, iters: int = 16,
                               pos_iters: int = 8, beta_pos: float = 0.3, slop: float = 2.0e-4,
                               max_corr: float = 0.01) -> FusedSolveResult:
-    """Launch the CUDA kernel on PyTorch's current stream."""
-    global launch_count
+    """Launch the CUDA kernel on PyTorch's current stream (counted in
+    `profiling`'s `kernels.contact_solver`)."""
     n, c = cs.depth.shape
     dev = cs.depth.device
     if dev.type != "cuda":
@@ -127,7 +125,7 @@ def solve_contacts_fused_cuda(mass, I_inv_w, v, w, cs: ContactSet, h: float, ite
                                            float(beta_pos), float(slop), float(max_corr), stream)
     if err != 0:
         raise RuntimeError(f"contact_solver_launch failed: CUDA error {err}")
-    launch_count += 1
+    profiling.count("kernels.contact_solver", 1)
     return FusedSolveResult(v=out[0], w=out[1], lam_n=lam_n, lam_t=lam_t, dx=out[2], dth=out[3])
 
 

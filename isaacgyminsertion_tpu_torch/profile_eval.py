@@ -62,7 +62,7 @@ from .algo.trainer import StudentEvaluator
 from .physics import solver_kernel as sk
 from .physics.kinematics import forward_kinematics, site_pose
 from .physics.robot import SITE_FINGERTIP_CENTERED, build_kuka_openhand
-from .sensors import render_kernels as rk
+from .utils import profiling
 from .utils.checkpoint import restore_path
 
 CKPTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "checkpoints")
@@ -155,13 +155,14 @@ def main(argv=None):
         if args.student:
             fk2 = forward_kinematics(model, state.phys.q)
             ftc_t2 = site_pose(model, fk2, SITE_FINGERTIP_CENTERED)[1]
-            counts = (rk.tactile_launch_count, rk.camera_launch_count)
+            counts = profiling.launches()
             t_sens, _ = _timed(lambda: insertion._sensor_step(
                 cfg, model, subs, state, state.phys, fk2, ftc_t2, state.frame + 1, state.progress + 1,
                 state.finger_forces_ema, gen), args.steps)
+            after = profiling.launches()
             sensors = {"sensor_step_ms": t_sens, "share_of_env_step": t_sens / t_env,
-                       "tactile_launches_per_step": (rk.tactile_launch_count - counts[0]) / args.steps,
-                       "camera_launches_per_step": (rk.camera_launch_count - counts[1]) / args.steps}
+                       "tactile_launches_per_step": (after["tactile_render"] - counts["tactile_render"]) / args.steps,
+                       "camera_launches_per_step": (after["camera_render"] - counts["camera_render"]) / args.steps}
 
         prof = _profile(control_step, args.steps)
 

@@ -32,16 +32,13 @@ import torch
 
 from ..assets import SOCKET_PLATE_HX, SOCKET_PLATE_HY
 from ..ops import sdf as sdfm
+from ..utils import profiling
 from ..utils.cuda_build import CudaKernel
 from . import raycast as rc
 
 TACTILE_ROW = 43   # floats per (env, finger) row, layout in csrc/tactile_render.cu
 CAMERA_ROW = 98    # floats per env row, layout in csrc/camera_render.cu
 NOISE_KINDS = {"gauss": 1, "ih4": 2}
-
-# Launches of each CUDA kernel, counted where its wrapper launches it.
-tactile_launch_count = 0
-camera_launch_count = 0
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 TACTILE_KERNEL = CudaKernel(
@@ -279,8 +276,8 @@ def tactile_rows_cuda(scal, rays, mask, *, iters: int, max_range: float, max_def
                       force_range: float, t0: float = 1e-3, exact: bool = True, generator=None,
                       noise_std: float = 0.0, glow: float = 0.0, noise_kind: str = "gauss"):
     """Launch the CUDA kernel on packed rows, on PyTorch's current stream →
-    RGB [R, P, 3] (a view of the kernel's [3, R, P] planes)."""
-    global tactile_launch_count
+    RGB [R, P, 3] (a view of the kernel's [3, R, P] planes); counted in
+    `profiling`'s `kernels.tactile_render`."""
     dev = scal.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA tactile renderer needs CUDA tensors, got {dev}")
@@ -303,7 +300,7 @@ def tactile_rows_cuda(scal, rays, mask, *, iters: int, max_range: float, max_def
             stream)
     if err != 0:
         raise RuntimeError(f"tactile_render_launch failed: CUDA error {err}")
-    tactile_launch_count += 1
+    profiling.count("kernels.tactile_render", 1)
     return out.permute(1, 2, 0)
 
 
@@ -492,8 +489,8 @@ def camera_rows_cuda(scal, rays, *, iters: int, near: float, far: float, plate_h
                      plate_hy: float, tip_radius: float = 0.018, hand_radius: float = 0.045,
                      exact: bool = True):
     """Launch the CUDA kernel on packed rows, on PyTorch's current stream →
-    (t_hit, d_min, comp) [N, P]."""
-    global camera_launch_count
+    (t_hit, d_min, comp) [N, P]; counted in `profiling`'s
+    `kernels.camera_render`."""
     dev = scal.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA camera renderer needs CUDA tensors, got {dev}")
@@ -509,7 +506,7 @@ def camera_rows_cuda(scal, rays, *, iters: int, near: float, far: float, plate_h
             float(hand_radius), stream)
     if err != 0:
         raise RuntimeError(f"camera_render_launch failed: CUDA error {err}")
-    camera_launch_count += 1
+    profiling.count("kernels.camera_render", 1)
     return out[0], out[1], out[2]
 
 

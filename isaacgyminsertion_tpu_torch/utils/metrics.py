@@ -1,5 +1,5 @@
-"""Metrics and logging: a windowed scalar average, a wall-clock phase split
-and a metrics sink.
+"""Metrics and logging: a windowed scalar average and a metrics sink (the
+phase times are `utils.profiling` spans).
 
 Port of `isaacgyminsertion_tpu/utils/metrics.py`. The sink always writes
 `metrics.jsonl` (one JSON object per `write`) and adds a tensorboardX writer
@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from collections import deque
 
 
@@ -33,22 +32,6 @@ class AverageScalarMeter:
     @property
     def current_mean(self) -> float:
         return sum(self.deque) / max(len(self.deque), 1)
-
-
-class Timer:
-    """Wall-clock totals per named phase (data collection vs training)."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self._start: dict[str, float] = {}
-
-    def start(self, phase: str):
-        self._start[phase] = time.perf_counter()
-
-    def stop(self, phase: str):
-        self.totals[phase] = self.totals.get(phase, 0.0) + (
-            time.perf_counter() - self._start.pop(phase)
-        )
 
 
 class MetricsWriter:

@@ -29,7 +29,7 @@ from isaacgyminsertion_tpu_torch.physics.solver import ContactSet
 from isaacgyminsertion_tpu_torch.sensors import camera as cam_mod
 from isaacgyminsertion_tpu_torch.sensors import render_kernels as rk
 from isaacgyminsertion_tpu_torch.sensors import tactile as tact_mod
-from isaacgyminsertion_tpu_torch.utils import capture
+from isaacgyminsertion_tpu_torch.utils import capture, profiling
 from isaacgyminsertion_tpu_torch.utils.checkpoint import restore_path
 
 H = 1.0 / 180.0
@@ -61,10 +61,10 @@ def test_cuda_kernel_matches_plain(cuda_device, n, c):
     mass, I_inv, v, w, cs = sk.random_problem(n, c, seed=6)
     T = lambda x: torch.as_tensor(x, device=cuda_device)
     args = (T(mass), T(I_inv), T(v), T(w), ContactSet(**{k: T(x) for k, x in cs.items()}))
-    before = sk.launch_count
+    before = profiling.launches()["contact_solver"]
     out = sk.solve_contacts_fused(*args, H)
     torch.cuda.synchronize()
-    assert sk.launch_count == before + 1
+    assert profiling.launches()["contact_solver"] == before + 1
     _assert_solver_tolerances(out, sk.solve_contacts_fused_plain(*args, H))
 
 
@@ -92,10 +92,10 @@ def test_engine_step_on_the_card_matches_the_cpu(cuda_device):
                                    torque_mode_mask=torch.zeros(15), plug_wrench=torch.zeros((8, 6)))
         to = lambda tree: type(tree)(*[to(x) if isinstance(x, tuple) else x.to(cuda_device)
                                        for x in tree])
-        before = sk.launch_count
+        before = profiling.launches()["contact_solver"]
         p_gpu = engine.step(model, to(s.params), to(s.phys), to(ctrl))
         torch.cuda.synchronize()
-        assert sk.launch_count == before + cfg.sim.substeps
+        assert profiling.launches()["contact_solver"] == before + cfg.sim.substeps
         p_cpu = engine.step(model, s.params, s.phys, ctrl)
     for f in ("q", "plug_pos", "plug_quat"):
         np.testing.assert_allclose(getattr(p_gpu, f).cpu().numpy(), getattr(p_cpu, f).numpy(),
@@ -133,10 +133,10 @@ def _camera_scene(n, seed, device):
 @pytest.mark.parametrize("n,exact", [(2, True), (7, True), (256, True), (7, False)])
 def test_tactile_kernel_matches_plain(cuda_device, n, exact):
     args, kw = _tactile_scene(n, 3, cuda_device)
-    before = rk.tactile_launch_count
+    before = profiling.launches()["tactile_render"]
     out = rk.tactile_render(*args, **kw, exact=exact)
     torch.cuda.synchronize()
-    assert rk.tactile_launch_count == before + 1
+    assert profiling.launches()["tactile_render"] == before + 1
     assert tuple(out.shape) == (3 * n, 4096, 3)
     assert float((out > 0.01).float().mean()) > 0.01      # the pads do see the plug
     _assert_images(out, rk.tactile_render_plain(*args, **kw, exact=exact))
@@ -176,7 +176,7 @@ def test_camera_kernel_matches_plain(cuda_device, scene, n, exact):
     kernel branches on (`capture.camera_edge_cases`: every section family, the
     proxy in view and parked, tilted frames, P not a multiple of 4, a ray
     table off 16-byte alignment) through the packed-row wrapper."""
-    before = rk.camera_launch_count
+    before = profiling.launches()["camera_render"]
     if scene == "random":
         args, kw = _camera_scene(n, 5, cuda_device)
         kt, kd, kc = rk.camera_render(*args, **kw, exact=exact)
@@ -186,7 +186,7 @@ def test_camera_kernel_matches_plain(cuda_device, scene, n, exact):
         kt, kd, kc = rk.camera_rows_cuda(scal, k_rays, **kw, exact=exact)
         pt, pd, pc = rk.camera_rows_plain(scal, rays, **kw, exact=exact)
     torch.cuda.synchronize()
-    assert rk.camera_launch_count == before + 1
+    assert profiling.launches()["camera_render"] == before + 1
     flipped = _assert_images(kt, pt)
     assert float(((kc != pc) & ~flipped).float().mean()) < 1e-4
     if exact:
@@ -228,14 +228,16 @@ def test_sensor_step_on_the_card_matches_the_cpu(cuda_device):
     with torch.no_grad():
         s_cpu = insertion.reset_all(cfg, model, subs, insertion.make_generator(0, "cpu"), n)
         s_gpu = to(s_cpu)
-        t0, c0 = rk.tactile_launch_count, rk.camera_launch_count
+        before = profiling.launches()
         for _ in range(3):
             a = torch.zeros((n, 6))
             s_cpu, o_cpu = insertion.step(cfg, model, subs, s_cpu, a, insertion.make_generator(1, "cpu"))
             s_gpu, o_gpu = insertion.step(cfg, model, subs, s_gpu, a.to(cuda_device),
                                           insertion.make_generator(1, cuda_device))
         torch.cuda.synchronize()
-    assert rk.tactile_launch_count == t0 + 3 and rk.camera_launch_count == c0 + 3
+    after = profiling.launches()
+    assert after["tactile_render"] == before["tactile_render"] + 3
+    assert after["camera_render"] == before["camera_render"] + 3
     assert float((o_gpu.seg.cpu() != o_cpu.seg).float().mean()) < 5e-3
     # depth carries ±1 mm noise from two generators (÷ 0.5 m), the tactile image σ 0.01
     assert float(((o_gpu.img.cpu() - o_cpu.img).abs() > 6e-3).float().mean()) < 5e-3
@@ -378,7 +380,8 @@ def test_ppo_learns_on_fixed_seed_budget(cuda_device):
         kls.append(m["kl"])
     head, tail = float(np.mean(c_losses[:15])), float(np.mean(c_losses[-15:]))
     print(f"ppo learning check: c_loss first15 {head:.4f} last15 {tail:.4f} (ratio {head / tail:.2f}); "
-          f"kl min {min(kls):.4g} max {max(kls):.4g}; launches of the contact solver {sk.launch_count}")
+          f"kl min {min(kls):.4g} max {max(kls):.4g}; launches of the contact solver "
+          f"{profiling.launches()['contact_solver']}")
     assert np.all(np.isfinite(kls)), "KL diverged during the budget"
     assert tail < head / 1.5, f"critic did not learn: first15={head:.4f} last15={tail:.4f}"
 
@@ -408,7 +411,8 @@ def test_dagger_learns_on_fixed_seed_budget(cuda_device):
         losses.append(m["action_loss"])
     head, tail = float(np.mean(losses[:6])), float(np.mean(losses[-6:]))
     print(f"dagger learning check: action_loss first6 {head:.4f} last6 {tail:.4f} (ratio {head / tail:.2f}); "
-          f"beta {m['episode/beta']:.4f}; launches of the camera renderer {rk.camera_launch_count}")
+          f"beta {m['episode/beta']:.4f}; launches of the camera renderer "
+          f"{profiling.launches()['camera_render']}")
     assert m["episode/beta"] > 0.99
     assert tail < head, f"the student did not learn: first6={head:.4f} last6={tail:.4f}"
 
@@ -432,14 +436,14 @@ def test_collection_launch_counts_on_the_card(cuda_device, tmp_path):
     tree = restore_path(os.path.join(os.path.dirname(__file__), "..", "checkpoints", "teacher_r2b",
                                      "best_success"))
     net = actor_critic_from_jax_params(tree["params"], cuda_device)
-    sk.launch_count = rk.tactile_launch_count = rk.camera_launch_count = 0
+    profiling.clear_counters("kernels.")
     stats = {}
     n = collect_teacher_rollouts(cfg, model, subs, net, tree["obs_rms"], tree["priv_rms"], 8,
                                  str(tmp_path), total_trajectories=8, chunk=11, device=cuda_device,
                                  stats=stats)
     steps = stats["steps"]
     assert n == 8 and steps == 11 and stats["writer"] == "native .itraj"
-    assert (sk.launch_count, rk.tactile_launch_count, rk.camera_launch_count) == (3 * steps, steps, steps)
+    assert profiling.launches() == dict(contact_solver=3 * steps, tactile_render=steps, camera_render=steps)
     d = read_trajectory(str(tmp_path / "traj_000000.itraj"))
     assert d["obs"].dtype == np.float32 and d["done"].dtype == np.bool_ and d["done"][-1]
     for k in ("tactile", "img", "seg", "pcl"):       # float16 / int8 are stored as float32

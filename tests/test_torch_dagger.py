@@ -534,4 +534,7 @@ def test_dagger_learns_on_a_fixed_teacher():
         losses.append(m["loss"])
     assert np.all(np.isfinite(losses)) and state.agent_steps == 4 * 16
     assert m["episode/beta"] > 0.999
+    # the epoch's spans: the teacher's and the student's forwards, the Adam steps
+    assert 0 < m["time/rollout.policy_s"] + m["time/env_s"] <= m["time/rollout_s"]
+    assert 0 < m["time/update.adam_step_s"] <= m["time/update_s"]
     assert losses[-1] < losses[0]

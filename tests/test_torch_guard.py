@@ -235,12 +235,13 @@ def test_kernel_wrappers_dispatch_by_device_without_a_fallback():
     path on CPU tensors it raises, and no wrapper hides a failure in a try."""
     from isaacgyminsertion_tpu_torch.sensors import render_kernels as rk
     from isaacgyminsertion_tpu_torch.sensors import tactile as tact_mod
+    from isaacgyminsertion_tpu_torch.utils import profiling
 
     args, kw = tact_mod.render_inputs(tact_mod.TactileConfig(),
                                       *[torch.as_tensor(a) for a in rk.random_tactile_inputs(1, 0)])
-    before = rk.tactile_launch_count
+    before = profiling.launches()["tactile_render"]
     assert tuple(rk.tactile_render(*args, **kw).shape) == (3, 4096, 3)
-    assert rk.tactile_launch_count == before             # the plain version does not count
+    assert profiling.launches()["tactile_render"] == before             # the plain version does not count
     with pytest.raises(ValueError, match="CUDA tensors"):
         rk.tactile_render_cuda(*args, **kw)
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -55,6 +55,15 @@ def test_train_writes_its_files_and_restore_round_trips(world, tmp_path, capsys)
         for k in ("loss", "a_loss", "c_loss", "kl", "info/param_norm", "performance/EnvStepFPS",
                   "time/rollout_s", "time/update_s"):
             assert np.isfinite(r[k]), k
+        for k in ("rollout.policy", "env", "env.sync", "physics", "physics.dynamics", "physics.contacts",
+                  "sensors", "update.adam_step"):
+            assert np.isfinite(r[f"time/{k}_s"]) and r[f"time/{k}_s"] > 0, k
+        # each span's children take at most its own time
+        t = {k[len("time/"):-len("_s")]: v for k, v in r.items() if k.startswith("time/")}
+        assert t["rollout.policy"] + t["env"] <= t["rollout"] and t["update.adam_step"] <= t["update"]
+        assert t["env.sync"] + t.get("env.reset", 0.0) + t["physics"] + t["sensors"] <= t["env"]
+        assert t["physics.dynamics"] + t["physics.contacts"] <= t["physics"]
+    assert any("time/env.reset_s" in r for r in epochs)              # the resets inside the run
     assert sum("eval/success_rate" in r for r in rows) == 1
     assert sum(r["episode/dones"] for r in epochs) > 0            # episodes ended inside the run
     assert any(not torch.equal(start[k], v) for k, v in _params(tr.net).items())

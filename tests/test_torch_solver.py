@@ -11,6 +11,7 @@ from isaacgyminsertion_tpu.physics import solver as j_solver
 from isaacgyminsertion_tpu.physics.solver_pallas import solve_contacts_fused as j_fused
 from isaacgyminsertion_tpu_torch.physics import solver_kernel as sk
 from isaacgyminsertion_tpu_torch.physics.solver import ContactSet
+from isaacgyminsertion_tpu_torch.utils import profiling
 
 # tiny tensors: intra-op threads would only contend with the other test workers
 torch.set_num_threads(1)
@@ -60,10 +61,10 @@ def test_plain_matches_pallas_interpret(c, seed):
 
 def test_wrapper_takes_the_plain_version_for_cpu_tensors():
     _, t_args = _problem(3, 20, 5)
-    before = sk.launch_count
+    before = profiling.launches()["contact_solver"]
     out = sk.solve_contacts_fused(*t_args, H)
     ref = sk.solve_contacts_fused_plain(*t_args, H)
-    assert sk.launch_count == before
+    assert profiling.launches()["contact_solver"] == before
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
     with pytest.raises(ValueError):

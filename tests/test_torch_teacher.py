@@ -13,7 +13,7 @@ from isaacgyminsertion_tpu_torch.assets import build_subassembly_set
 from isaacgyminsertion_tpu_torch.envs.config import default_task_config
 from isaacgyminsertion_tpu_torch.models.actor_critic import actor_critic_from_jax_params
 from isaacgyminsertion_tpu_torch.physics.robot import build_kuka_openhand
-from isaacgyminsertion_tpu_torch.physics import solver_kernel
+from isaacgyminsertion_tpu_torch.utils import profiling
 from isaacgyminsertion_tpu_torch.utils.checkpoint import restore_path
 
 # tiny tensors: intra-op threads would only contend with the other test workers
@@ -28,9 +28,9 @@ def test_banked_teacher_inserts_on_the_port():
     net = actor_critic_from_jax_params(tree["params"], "cpu")
     evaluate = make_eval_fn(cfg, build_kuka_openhand(), build_subassembly_set(), net, n_envs=16,
                             device="cpu")
-    launches = solver_kernel.launch_count
+    launches = profiling.launches()["contact_solver"]
     sr = evaluate(tree["obs_rms"], tree["priv_rms"], seed=7)
-    assert solver_kernel.launch_count == launches    # CPU tensors take the plain version
+    assert profiling.launches()["contact_solver"] == launches    # CPU tensors take the plain version
     # the reference's 1024-env success is 0.8428; 16 envs is a generous floor
     # against eval variance, not physics drift
     assert sr >= 0.5, f"banked teacher success {sr:.3f} < 0.5 on the port"

@@ -3,6 +3,9 @@
 on the same inputs. The envs run in the port only (no JAX env step is
 compiled): the JAX functions are handed the port's states as host arrays."""
 
+import contextlib
+import dataclasses
+import json
 import os
 import time
 
@@ -13,7 +16,6 @@ import pytest
 import torch
 
 from isaacgyminsertion_tpu.physics.robot import build_kuka_openhand as j_build_robot
-from isaacgyminsertion_tpu.utils import profiling as j_prof
 from isaacgyminsertion_tpu.utils import rna as j_rna
 from isaacgyminsertion_tpu.utils import scene_export as j_scene
 from isaacgyminsertion_tpu.utils import video as j_video
@@ -37,6 +39,21 @@ def world():
         for _ in range(2):
             states.append(insertion.step(cfg, model, subs, states[-1], 0.5 * torch.ones((12, 6)), gen)[0])
     return dict(cfg=cfg, model=model, subs=subs, states=states)
+
+
+@pytest.fixture(scope="module")
+def sensors_world(world):
+    """32 envs with every sensor on at render_capacity 0.75 (24 rows a renderer
+    a step) and no sensor delay, so a fresh frame's consumers follow from the
+    state; just reset."""
+    cfg = world["cfg"]
+    cfg = cfg.replace(randomize=dataclasses.replace(cfg.randomize, domain_randomize=False),
+                      env=dataclasses.replace(cfg.env, tactile=True, external_cam=True, depth_cam=True,
+                                              seg_cam=True, pcl_cam=True, render_capacity=0.75,
+                                              tactile_delay_prob=0.0, img_delay_prob=0.0, seg_delay_prob=0.0))
+    with torch.no_grad():
+        state = insertion.reset_all(cfg, world["model"], world["subs"], insertion.make_generator(5, "cpu"), 32)
+    return dict(world, cfg=cfg, states=[state])
 
 
 def _host(tree):
@@ -136,17 +153,113 @@ def test_check_determinism_holds_the_env_step_and_catches_fresh_noise(world):
 
 
 def test_trace_writes_a_chrome_trace_and_step_timer_is_the_reference(tmp_path, monkeypatch):
+    """`trace` writes a Chrome trace that holds the spans opened in it; a span
+    opens `record_function` only while a profiler records."""
+    opened, record_function = [], torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: opened.append(name) or record_function(name))
+    with profiling.span("test.outside"):
+        torch.ones(2) + 1
+    assert opened == []
     with profiling.trace(str(tmp_path / "tr")) as path:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with profiling.span("test.outer"):
+            with profiling.span("test.outer.inner"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+    assert opened == ["test.outer", "test.outer.inner"]
     assert path == str(tmp_path / "tr" / "trace.json") and os.path.getsize(path) > 0
-    timers = [profiling.StepTimer(alpha=0.3), j_prof.StepTimer(alpha=0.3)]
-    for timer in timers:
-        clock = iter(np.cumsum(np.arange(1.0, 9.0) * 0.37))   # the same clock for each timer
-        monkeypatch.setattr(time, "perf_counter", lambda: float(next(clock)))
-        for name in ("rollout", "update", "rollout", "rollout"):
-            with timer.phase(name):
-                pass
-    assert timers[0].summary() == timers[1].summary() and set(timers[0].summary()) == {"rollout", "update"}
+    names = {e.get("name") for e in json.load(open(path))["traceEvents"]}
+    assert {"test.outer", "test.outer.inner", "aten::mm"} <= names and "test.outside" not in names
+    with profiling.span("test.outside"):
+        pass
+    assert opened == ["test.outer", "test.outer.inner"]
+
+
+def test_a_control_step_records_its_spans_each_inside_its_parent(world):
+    cfg, model, subs = world["cfg"], world["model"], world["subs"]
+    before = profiling.spans()
+    with torch.no_grad():
+        insertion.step(cfg, model, subs, world["states"][0], 0.3 * torch.ones((12, 6)),
+                       insertion.make_generator(0, "cpu"))
+    got = profiling.spans_since(before)
+    assert {"env", "env.sync", "physics", "physics.dynamics", "physics.contacts", "sensors"} <= set(got)
+    assert "env.reset" not in got and not bool(world["states"][0].reset_buf.any())
+    assert got["physics.dynamics"] + got["physics.contacts"] <= got["physics"]
+    assert got["env.sync"] + got["physics"] + got["sensors"] <= got["env"]
+
+
+def test_spans_and_counters_add_no_torch_op_with_tracing_off(sensors_world, monkeypatch):
+    """With tracing off, a control step with every sensor on and the spans and
+    counters in place issues exactly the torch ops of the same step with both
+    stubbed out; a device count reaches `count` as a callable, so that no op
+    builds it unless tracing is on."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    w = sensors_world
+
+    def step():
+        insertion.step(w["cfg"], w["model"], w["subs"], w["states"][0], 0.3 * torch.ones((32, 6)),
+                       insertion.make_generator(0, "cpu"))
+
+    def ops_of_a_step():
+        with torch.no_grad(), Ops() as mode:
+            step()
+        return mode.ops
+
+    with torch.no_grad():
+        step()   # the constants a first step caches
+    assert profiling.tracing(False) is False
+    before, counted, count = profiling.spans(), [], profiling.count
+    monkeypatch.setattr(profiling, "count", lambda name, value: counted.append(value) or count(name, value))
+    instrumented = ops_of_a_step()
+    assert counted and all(isinstance(v, (int, float)) or callable(v) for v in counted)
+    assert set(profiling.spans_since(before)) >= {"env", "physics", "sensors.tactile", "sensors.camera"}
+    monkeypatch.setattr(profiling, "span", lambda name: contextlib.nullcontext())
+    monkeypatch.setattr(profiling, "count", lambda name, value: None)
+    bare = ops_of_a_step()
+    assert len(instrumented) > 1000 and instrumented == bare
+
+
+def test_rows_consumed_counts_the_rendered_rows_whose_frame_is_taken(sensors_world):
+    """At render_capacity 0.75 each renderer draws 24 of the 32 rows; the
+    consumed rows are those of each selection whose fresh frame the queue
+    takes: the tactile refreshes, and the camera's refreshes and first steps."""
+    w = sensors_world
+    s = w["states"][0]
+    # past the first steps, at staggered frames: some rows consume, some do not
+    s = s._replace(progress=s.progress + 20, frame=s.frame + torch.arange(32, dtype=s.frame.dtype))
+    assert not bool(s.reset_buf.any())
+    frame, progress = s.frame + 1, s.progress + 1
+    t_upd = ((frame + s.tactile_refresh_offset) % s.tactile_refresh_rate) == 0
+    i_refresh = ((frame + s.img_refresh_offset) % s.img_refresh_rate) == 0
+    initial = progress < 10
+    sel_t = insertion.render_selection(torch.where(t_upd, 0, 1), 0.75, s.global_step)
+    sel_c = insertion.render_selection(torch.where(initial, 0, torch.where(i_refresh, 1, 2)), 0.75, s.global_step)
+    want = int(t_upd[sel_t].sum()) + int((initial | i_refresh)[sel_c].sum())
+    assert len(sel_t) == len(sel_c) == 24 and 0 < want < 48
+
+    profiling.clear_counters("sensors.")
+    was = profiling.tracing(True)
+    try:
+        before = profiling.spans()
+        with torch.no_grad():
+            insertion.step(w["cfg"], w["model"], w["subs"], s, torch.zeros((32, 6)),
+                           insertion.make_generator(0, "cpu"))
+        got = profiling.spans_since(before)
+    finally:
+        profiling.tracing(was)
+    assert profiling.counters()["sensors.rows_rendered"] == 48
+    assert profiling.counters()["sensors.rows_consumed"] == want
+    assert got["sensors.tactile"] + got["sensors.camera"] <= got["sensors"] <= got["env"]
+    profiling.clear_counters("sensors.")
 
 
 def test_rna_forward_init_and_params_match_flax():
