@@ -10,8 +10,9 @@ those of the reference: `lr_schedule="kl"`, `anchor_coef`,
 `critic_warmup_steps` (+ `warmup_freeze_rms`) and `bootstrap_mask_success`.
 
 One epoch is a Python loop: `horizon` env steps with the policy sampling
-actions (no autograd, except the env's own SDF gradients), the bootstrap
-value and GAE, the normalizer updates, the flattened batch, then
+actions (no autograd; on the CPU the env's plain contact generation takes its
+SDF normals by autograd), the bootstrap value and GAE, the normalizer
+updates, the flattened batch, then
 `mini_epochs` passes over `batch // mini_epochs`-row minibatches, each an
 autograd step of Adam behind a clip by global norm with optax's semantics.
 The parameters live in the `ActorCriticSplit` module and are updated in

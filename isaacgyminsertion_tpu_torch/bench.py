@@ -48,11 +48,11 @@ PEAK_F32_FLOPS_BY_NAME = [
     ("H100", 67e12),      # SXM: "NVIDIA H100 80GB HBM3"
 ]
 FLOPS_COUNTED = ("matmul-family aten ops (mm, addmm, bmm, convolution, attention) of the warm-up epoch, forward "
-                 "and backward, by torch.utils.flop_counter; not counted: the elementwise physics and the three "
-                 "hand-written kernels (contact solver, tactile and camera renderers)")
+                 "and backward, by torch.utils.flop_counter; not counted: the elementwise physics and the four "
+                 "hand-written kernels (contact generation and solver, tactile and camera renderers)")
 
 # Each worker is bounded. The slowest one is the first sensors-on worker at 8192 envs:
-# it builds the three kernels with nvcc, resets, runs the FLOP-counted warm-up and
+# it builds the four kernels with nvcc, resets, runs the FLOP-counted warm-up and
 # three timed epochs. On an H100 the three workers took 382 s together and a state-only
 # worker at 8192 envs 110 s (PERF.md §6): the default is ~4x a worker's time
 WORKER_TIMEOUT_S = int(os.environ.get("IGT_BENCH_TIMEOUT", "600"))

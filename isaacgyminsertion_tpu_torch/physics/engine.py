@@ -7,14 +7,15 @@ each with
           solved by the fused split-impulse contact solver
   socket/table: static (poses are per-env params set at reset)
 
-The contact solve dispatches on the tensors' device: CUDA tensors go to the
-hand-written CUDA kernel, CPU tensors to its plain PyTorch version
-(`solver_kernel.solve_contacts_fused`).
+Contact generation and the contact solve dispatch on the tensors' device:
+CUDA tensors go to the hand-written CUDA kernels, CPU tensors to their plain
+PyTorch versions (`contact_kernel.generate_contacts`,
+`solver_kernel.solve_contacts_fused`).
 
 Spans (`utils.profiling`): `physics` is `step`; inside it each substep's
 `physics.dynamics` (the robot's FK, Jacobians, mass matrix and bias forces,
-and the plug's free velocity) and `physics.contacts` (contact generation,
-with its autograd SDF gradients).
+and the plug's free velocity) and `physics.contacts` (contact generation:
+one kernel launch on the card).
 """
 
 from __future__ import annotations
@@ -26,14 +27,8 @@ import torch
 from ..ops import const
 from ..ops import rotations as rot
 from ..utils import profiling
-from .contact import (
-    PATCH_POINTS,
-    MaterialParams,
-    concat_contacts,
-    default_materials,
-    fingertip_plug_contacts,
-    plug_env_contacts,
-)
+from .contact import PATCH_POINTS, MaterialParams, default_materials
+from .contact_kernel import generate_contacts
 from .dynamics import bias_forces, fk_jacobians_with_tangents, implicit_pd_step, mass_matrix
 from .kinematics import point_jacobian, site_pose
 from .robot import SITE_FINGER_1, SITE_FINGER_2, SITE_FINGER_3, RobotModel
@@ -202,21 +197,13 @@ def _prepare(model, params: PhysicsParams, state: PhysicsState, ctrl: ControlInp
         w_free = state.plug_w * damp + h * torch.einsum(
             "...ij,...j->...i", I_inv_w, ctrl.plug_wrench[..., 3:] - gyro)
 
-    # ---- contact generation
+    # ---- contact generation: one kernel launch on the card
     with profiling.span("physics.contacts"):
-        cs_fing, _aux = fingertip_plug_contacts(
-            tip_t, tip_vel, state.plug_quat, state.plug_pos, com_w, params.kind_onehot,
-            params.plug_hx, params.plug_hy, params.plug_length, params.contact)
-        from ..assets import SOCKET_PT_COUNT, TABLE_PT_IDX
-
-        tbl_idx = const(TABLE_PT_IDX, params.surface_points.device, torch.long)
-        cs_env = plug_env_contacts(
-            params.surface_points[:, :SOCKET_PT_COUNT], params.surface_weights[:, :SOCKET_PT_COUNT],
-            params.surface_points[:, tbl_idx], params.surface_weights[:, tbl_idx],
-            state.plug_quat, state.plug_pos, com_w, params.socket_quat, params.socket_pos,
-            params.kind_onehot, params.hole_hx, params.hole_hy, params.socket_height,
-            params.table_height, params.contact)
-        cs = concat_contacts(cs_fing, cs_env)  # finger patches occupy slots [0:3*PATCH_POINTS]
+        cs = generate_contacts(*(t.contiguous() for t in (
+            tip_t, tip_vel, state.plug_quat, state.plug_pos, com_w, params.socket_quat, params.socket_pos,
+            params.kind_onehot, params.plug_hx, params.plug_hy, params.plug_length, params.hole_hx,
+            params.hole_hy, params.socket_height, params.table_height, params.surface_points,
+            params.surface_weights)), params.contact)   # finger patches occupy slots [0:3*PATCH_POINTS]
     return _Prepared(M, C, Jtips, com_w, I_inv_w.contiguous(), v_free.contiguous(),
                      w_free.contiguous(), cs)
 

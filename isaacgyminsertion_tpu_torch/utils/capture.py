@@ -2,13 +2,15 @@
 
 `chip_smoke.py` and `kernel_ablation.py` hold each hand-written kernel against
 its plain version, and time it, on what the main path gives it: a contact
-problem captured from a real physics substep, and the two renderers' arguments
+problem captured from a real physics substep, the contact generation's inputs
+recorded on the substeps of a rollout, and the two renderers' arguments
 captured from a sensors-on env a few steps after reset. Random scenes in the
 style of the reference's render parity tests come from here too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from statistics import median
 
@@ -42,6 +44,70 @@ def contact_problem_of(model, state, h: float):
                                    torque_mode_mask=torch.zeros((15,), device=q.device),
                                    plug_wrench=torch.zeros((q.shape[0], 6), device=q.device))
         return engine.contact_problem(model, state.params, state.phys, ctrl, h)
+
+
+@contextlib.contextmanager
+def recording_contact_inputs(keep=None):
+    """Record the arguments of the contact-generation kernel's launches made
+    inside the block, cloned, into the list it yields: launch i is kept where
+    `keep(i)` (every launch when None)."""
+    from ..physics import contact_kernel as ck
+
+    rec, original, seen = [], ck.generate_contacts_cuda, [0]
+
+    def recording(*args):
+        if keep is None or keep(seen[0]):
+            rec.append(tuple(a.clone() if isinstance(a, torch.Tensor) else type(a)(*(t.clone() for t in a))
+                             for a in args))
+        seen[0] += 1
+        return original(*args)
+
+    ck.generate_contacts_cuda = recording
+    try:
+        yield rec
+    finally:
+        ck.generate_contacts_cuda = original
+
+
+def rollout_contact_inputs(cfg, model, subs, n: int, steps: int, every: int, dev, checkpoint: str,
+                           seed: int = 0) -> list:
+    """The contact generation's arguments on every `every`-th substep of a
+    `steps`-step rollout of `n` envs from reset under the teacher at
+    `checkpoint` (deterministic actions, as its eval)."""
+    from ..algo.ppo import make_act_fn
+    from ..models.actor_critic import actor_critic_from_jax_params
+    from ..models.running_mean_std import rms_to
+    from .checkpoint import restore_path
+
+    tree = restore_path(checkpoint)
+    act = make_act_fn(cfg, actor_critic_from_jax_params(tree["params"], dev))
+    obs_rms, priv_rms = rms_to(tree["obs_rms"], dev), rms_to(tree["priv_rms"], dev)
+    gen = insertion.make_generator(seed, dev)
+    with torch.no_grad():
+        state = insertion.reset_all(cfg, model, subs, gen, n)
+        with recording_contact_inputs(lambda i: i % every == every - 1) as rec:
+            for _ in range(steps):
+                priv = insertion.priv_info_of(cfg, model, state)
+                state, _ = insertion.step(cfg, model, subs, state,
+                                          act(obs_rms, priv_rms, state.obs_queue, priv), gen)
+    return rec
+
+
+def contact_inputs_of(cfg, model, subs, n: int, dev, steps: int = 2, seed: int = 0) -> list:
+    """The contact generation's arguments on each substep of `steps`
+    zero-action env steps after a reset of `n` envs."""
+    with torch.no_grad():
+        gen = insertion.make_generator(seed, dev)
+        state = insertion.reset_all(cfg, model, subs, gen, n)
+        with recording_contact_inputs() as rec:
+            for _ in range(steps):
+                state, _ = insertion.step(cfg, model, subs, state, torch.zeros((n, 6), device=dev), gen)
+    return rec
+
+
+def contact_errors(out, ref) -> dict:
+    """Contact generation kernel vs plain → {field: largest abs error}."""
+    return {f: float((getattr(out, f) - getattr(ref, f)).abs().max()) for f in out._fields}
 
 
 def active_counts(cs) -> torch.Tensor:

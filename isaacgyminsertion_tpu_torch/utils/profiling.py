@@ -110,7 +110,8 @@ def launches() -> dict[str, int]:
     """The hand-written kernels' launches in this process, by kernel (their
     wrappers count them as `kernels.<kernel>`)."""
     counts = counters()
-    return {k: counts.get(f"kernels.{k}", 0) for k in ("contact_solver", "tactile_render", "camera_render")}
+    return {k: counts.get(f"kernels.{k}", 0)
+            for k in ("contact_solver", "contact_gen", "tactile_render", "camera_render")}
 
 
 def clear_counters(prefix: str = ""):

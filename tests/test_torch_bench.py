@@ -106,7 +106,7 @@ def test_pcl_worker_prints_its_line_on_the_cpu(monkeypatch):
     assert res["device_kind"] == "cpu" and res["mfu"] is None and res["peak_memory_gb"] is None
     assert "hand-written kernels" in res["flops_counted"]
     # on the CPU the wrappers take their plain versions, which count no launch
-    assert res["launches"] == {"contact_solver": 0, "tactile_render": 0, "camera_render": 0}
+    assert res["launches"] == {"contact_solver": 0, "contact_gen": 0, "tactile_render": 0, "camera_render": 0}
     assert 0 < res["steps_with_rows"]["tactile_render"] <= 3 * 2
     assert np.isfinite(res["loss"]) and np.isfinite(res["kl"])
 

@@ -92,10 +92,12 @@ def test_engine_step_on_the_card_matches_the_cpu(cuda_device):
                                    torque_mode_mask=torch.zeros(15), plug_wrench=torch.zeros((8, 6)))
         to = lambda tree: type(tree)(*[to(x) if isinstance(x, tuple) else x.to(cuda_device)
                                        for x in tree])
-        before = profiling.launches()["contact_solver"]
+        before = profiling.launches()
         p_gpu = engine.step(model, to(s.params), to(s.phys), to(ctrl))
         torch.cuda.synchronize()
-        assert profiling.launches()["contact_solver"] == before + cfg.sim.substeps
+        after = profiling.launches()
+        for k in ("contact_solver", "contact_gen"):   # one generation and one solve a substep
+            assert after[k] == before[k] + cfg.sim.substeps, k
         p_cpu = engine.step(model, s.params, s.phys, ctrl)
     for f in ("q", "plug_pos", "plug_quat"):
         np.testing.assert_allclose(getattr(p_gpu, f).cpu().numpy(), getattr(p_cpu, f).numpy(),
@@ -443,7 +445,8 @@ def test_collection_launch_counts_on_the_card(cuda_device, tmp_path):
                                  stats=stats)
     steps = stats["steps"]
     assert n == 8 and steps == 11 and stats["writer"] == "native .itraj"
-    assert profiling.launches() == dict(contact_solver=3 * steps, tactile_render=steps, camera_render=steps)
+    assert profiling.launches() == dict(contact_solver=3 * steps, contact_gen=3 * steps, tactile_render=steps,
+                                         camera_render=steps)
     d = read_trajectory(str(tmp_path / "traj_000000.itraj"))
     assert d["obs"].dtype == np.float32 and d["done"].dtype == np.bool_ and d["done"][-1]
     for k in ("tactile", "img", "seg", "pcl"):       # float16 / int8 are stored as float32

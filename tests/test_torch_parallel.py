@@ -202,7 +202,8 @@ def test_dryrun_on_two_cpu_ranks_prints_both_ok_lines_and_the_ranks_draw_apart(c
     results = dryrun.dryrun(2, "gloo", "cpu")
     out = capsys.readouterr().out
     assert "dryrun_multichip(2) ok:" in out and "dryrun_multichip(2) sensors-on ok:" in out
-    for spec_i, want in enumerate(({"contact_solver": 0, "tactile_render": 0, "camera_render": 0},) * 2):
+    zero = {"contact_solver": 0, "contact_gen": 0, "tactile_render": 0, "camera_render": 0}
+    for spec_i, want in enumerate((zero,) * 2):
         assert [r[spec_i]["counts"] for r in results] == [want] * 2   # CPU: the plain versions
         assert {r[spec_i]["agent_steps"] for r in results} == {2 * 8}
     # one seed, two ranks: their envs and their action noise are not the same draws
