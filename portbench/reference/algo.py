@@ -17,6 +17,13 @@ class RMS(NamedTuple):
     count: torch.Tensor
 
 
+def generator(state, dev) -> torch.Generator:
+    """A generator on `dev` set to a recorded state."""
+    gen = torch.Generator(device=dev)
+    gen.set_state(state)
+    return gen
+
+
 def rms_init(shape, dev) -> RMS:
     return RMS(torch.zeros(shape, device=dev), torch.ones(shape, device=dev), torch.tensor(1e-4, device=dev))
 

@@ -19,8 +19,11 @@ the stage this skips by itself:
   generator's state before the update; the reservoir's uniforms and rows as
   recorded) against the program's.
 
-`follow` computes the reference's outputs, `outputs_of_capture` puts the
-program's recorded epoch in the same form, and `compare` reads the gaps:
+What depends on the algorithm (the rollout, the update's inputs, the policy
+outputs compared) is the reference's module of the configuration's `algo`
+(`kinds/<algo>.py`). `follow` computes the reference's outputs,
+`outputs_of_capture` puts the program's recorded epoch in the same form, and
+`compare` reads the gaps:
 
 - `reset_gap`, `env_step_gap`: the worst field's largest absolute gap over
   the largest magnitude of that field in the reference (integer and boolean
@@ -44,7 +47,7 @@ import dataclasses
 import torch
 
 from .. import tree
-from . import algo, nets
+from . import algo, kinds
 from .frozen.assets import build_subassembly_set
 from .frozen.envs import insertion
 from .frozen.envs.config import default_task_config
@@ -180,24 +183,14 @@ def compare(prog: dict, ref: dict) -> dict:
 
 def outputs_of_capture(cap: dict, cfg: dict, steps: list) -> dict:
     """The program's recorded epoch in the form `compare` reads."""
-    keys = ("actions", "neglogp", "values", "mu", "priv") if cfg["algo"] == "ppo" else ("t_actions", "latent_gt")
-    policy = {t: {k: cap["traj"][t][k] for k in keys} for t in steps}
-    if cfg["algo"] != "ppo":
-        for t in steps:
-            policy[t]["s_actions"] = cap["s_actions"][t]
+    kind = kinds.of(cfg)
     return {"reset": cap["states"][0],
             "post": {t: cap["states"][t + 1] for t in steps},
-            "policy": policy,
+            "policy": {t: kind.policy_outputs(cap, t) for t in steps},
             "losses": cap["losses"], "grad1": cap["grad1"], "params3": cap["params3"]}
 
 
 # ------------------------------------------------------------------ the reference's side
-
-def _generator(state, dev) -> torch.Generator:
-    gen = torch.Generator(device=dev)
-    gen.set_state(state)
-    return gen
-
 
 class _Env:
     def __init__(self, mix: dict, dev):
@@ -211,8 +204,11 @@ class _Env:
     def state(self, data):
         return tree.from_data(data, TYPES, self.dev)
 
+    def priv(self, state):
+        return insertion.priv_info_of(self.cfg, self.model, state)
+
     def step(self, pre, actions, gen_state, alter=None):
-        post, out = insertion.step(self.cfg, self.model, self.subs, pre, actions, _generator(gen_state, self.dev))
+        post, out = insertion.step(self.cfg, self.model, self.subs, pre, actions, algo.generator(gen_state, self.dev))
         if alter is not None:
             post = alter(post)
         return post, out
@@ -225,12 +221,12 @@ def follow(cap: dict, cfg: dict, mix: dict, seed: int, dev, steps: list, tf32: b
     place: "half_batch" (each loss over half of its minibatch) or "token"
     (one env's observation altered in one step's result). `rollout`, the
     `rollout` entry of an earlier result, reuses its followed steps."""
-    algo_ppo = cfg["algo"] == "ppo"
+    kind = kinds.of(cfg)
     with precision(tf32), torch.no_grad():
         if rollout is None:
             env = _Env(mix, dev)
             reset, gen0 = env.reset(seed, int(mix["envs"]))
-            rollout = (_roll_ppo if algo_ppo else _roll_dagger)(cap, cfg, mix, env, dev, steps)
+            rollout = kind.roll(cap, cfg, mix, env, dev, steps)
             # the program's reset drew as many random values as the reference's
             rollout.update(reset=reset, reset_draws=bool(torch.equal(gen0, cap["gen"][0])))
         post = dict(rollout["post"])
@@ -239,9 +235,13 @@ def follow(cap: dict, cfg: dict, mix: dict, seed: int, dev, steps: list, tf32: b
             obs = post[mid].obs_queue.clone()
             obs[0, 0] += 1.0
             post[mid] = post[mid]._replace(obs_queue=obs)
-        update = (_update_ppo if algo_ppo else _update_dagger)(cap, cfg, mix, dev, rollout, fault)
+        update = kind.update(cap, cfg, mix, dev, rollout, N_ADAM)
+        mbs = update["minibatches"]
+        if fault == "half_batch":
+            mbs = [_half(m) for m in mbs]
+        steps_out = _adam_steps(update["params"], update["loss_of"], update["lr"], update["grad_norm"], mbs)
         return {"reset": rollout["reset"], "reset_draws": rollout["reset_draws"], "post": post,
-                "policy": rollout["policy"], **update, "rollout": rollout}
+                "policy": rollout["policy"], **steps_out, "rollout": rollout}
 
 
 def _adam_steps(params: dict, loss_of, h_lr: float, grad_norm: float, batches: list):
@@ -266,130 +266,3 @@ def _adam_steps(params: dict, loss_of, h_lr: float, grad_norm: float, batches: l
 
 def _half(mb: dict) -> dict:
     return {k: v[: v.shape[0] // 2] for k, v in mb.items()}
-
-
-def _roll_ppo(cap, cfg, mix, env, dev, steps):
-    p, h = cfg["policy"], cfg["ppo"]
-    w = {k: v.to(dev) for k, v in cap["weights"].items()}
-    obs_rms0, priv_rms0, val_rms0 = algo.rms_init((p["obs_dim"],), dev), algo.rms_init((p["priv_dim"],), dev), \
-        algo.rms_init((), dev)
-    traj = {k: torch.stack([cap["traj"][t][k] for t in range(len(cap["traj"]))]).to(dev)
-            for k in ("obs", "priv", "actions", "neglogp", "values", "rewards", "dones")}
-    post, policy = {}, {}
-    for t in steps:
-        pre = env.state(cap["states"][t])
-        priv = insertion.priv_info_of(env.cfg, env.model, pre)
-        mu, log_std, v_n, _ = nets.actor_critic(w, p, algo.rms_norm(obs_rms0, pre.obs_queue),
-                                                algo.rms_norm(priv_rms0, priv))
-        noise = torch.randn(mu.shape, generator=_generator(cap["train_gen"][t], dev), device=dev, dtype=mu.dtype)
-        actions = mu + torch.exp(log_std) * noise
-        value = algo.rms_unnorm(val_rms0, v_n)
-        post[t], out = env.step(pre, torch.clamp(actions, -1.0, 1.0), cap["gen"][t])
-        policy[t] = {"actions": actions, "neglogp": algo.neglogp(actions, mu, log_std), "values": value, "mu": mu,
-                     "priv": priv}
-        traj["obs"][t], traj["priv"][t], traj["actions"][t] = pre.obs_queue, priv, actions
-        traj["neglogp"][t], traj["values"][t] = policy[t]["neglogp"], value
-        traj["rewards"][t] = 0.01 * out.rew + h["gamma"] * value * out.timeout.to(out.rew.dtype)
-        traj["dones"][t] = out.reset.float()
-    last = env.state(cap["states"][len(cap["traj"])])
-    v_last = algo.rms_unnorm(val_rms0, nets.actor_critic(
-        w, p, algo.rms_norm(obs_rms0, last.obs_queue),
-        algo.rms_norm(priv_rms0, insertion.priv_info_of(env.cfg, env.model, last)))[2])
-    return {"post": post, "policy": policy, "traj": traj, "v_last": v_last, "weights": w}
-
-
-def _update_ppo(cap, cfg, mix, dev, roll, fault):
-    p, h = cfg["policy"], cfg["ppo"]
-    traj, w = roll["traj"], roll["weights"]
-    advs, returns = algo.gae(traj["rewards"], traj["values"], traj["dones"], roll["v_last"], h["gamma"], h["tau"])
-    obs_rms = algo.rms_update(algo.rms_init((p["obs_dim"],), dev), traj["obs"])
-    priv_rms = algo.rms_update(algo.rms_init((p["priv_dim"],), dev), traj["priv"])
-    val_rms = algo.rms_update(algo.rms_init((), dev), returns)
-    fl = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
-    batch = {"obs": fl(traj["obs"]), "priv": fl(traj["priv"]), "actions": fl(traj["actions"]),
-             "neglogp": fl(traj["neglogp"]), "values": fl(algo.rms_norm(val_rms, traj["values"], 1e6)),
-             "returns": fl(algo.rms_norm(val_rms, returns, 1e6)), "advs": fl(advs)}
-    a = batch["advs"]
-    batch["advs"] = (a - a.mean()) / (a.var(correction=0).sqrt() + 1e-8)
-    b = batch["obs"].shape[0]
-    mb = b // h["mini_epochs"]
-    n_mb = b // mb
-    gen = _generator(cap["perm_gen"], dev)
-    perms = [torch.randperm(b, generator=gen, device=dev) for _ in range((N_ADAM - 1) // n_mb + 1)]
-    mbs = [{k: v[perms[j // n_mb].reshape(n_mb, mb)[j % n_mb]] for k, v in batch.items()} for j in range(N_ADAM)]
-    if fault == "half_batch":
-        mbs = [_half(m) for m in mbs]
-
-    def loss_of(wp, m):
-        mu, log_std, value, _ = nets.actor_critic(wp, p, algo.rms_norm(obs_rms, m["obs"]),
-                                                  algo.rms_norm(priv_rms, m["priv"]))
-        return algo.ppo_loss(mu, log_std, value, m, h)
-
-    return _adam_steps(w, loss_of, h["learning_rate"], h["grad_norm"], mbs)
-
-
-def _roll_dagger(cap, cfg, mix, env, dev, steps):
-    s, d, tc = cfg["student"], cfg["dagger"], cfg["teacher"]
-    td = cap["teacher"]
-    tw = {k: v.to(dev) for k, v in td["weights"].items()}
-    t_obs_rms = algo.RMS(*[x.to(dev) for x in td["obs_rms"]])
-    t_priv_rms = algo.RMS(*[x.to(dev) for x in td["priv_rms"]])
-    w = {k: v.to(dev) for k, v in cap["weights"].items()}
-    n = int(mix["envs"])
-    stud_rms0, pcl_rms0 = algo.rms_init((s["obs_dim"],), dev), algo.rms_init((3,), dev)
-    keys = ("obs", "student_obs", "t_actions", "latent_gt", "pcl")
-    traj = {k: torch.stack([cap["traj"][t][k] for t in range(len(cap["traj"]))]).to(dev) for k in keys}
-    post, policy = {}, {}
-    for t in steps:
-        pre = env.state(cap["states"][t])
-        priv = insertion.priv_info_of(env.cfg, env.model, pre)
-        mu, _, _, latent = nets.actor_critic(tw, tc, algo.rms_norm(t_obs_rms, pre.obs_queue),
-                                             algo.rms_norm(t_priv_rms, priv))
-        t_actions = torch.clamp(mu, -1.0, 1.0)
-        pcl = algo.rms_norm(pcl_rms0, pre.pcl_queue[:, -1])
-        s_actions = nets.student(w, s, algo.rms_norm(stud_rms0, pre.obs_stud_queue), pcl)
-        agent_steps = cap["agent_steps"] + t * n
-        beta = min(max(1.0 - agent_steps / d["beta_anneal_steps"], 0.0), 1.0)
-        if agent_steps < d["teacher_only_steps"] and not mix["env"].get("tactile", False):
-            actions = t_actions
-        else:
-            coins = torch.rand((n, 1), generator=_generator(cap["train_gen"][t], dev), device=dev)
-            actions = torch.where(coins < beta, t_actions, s_actions)
-        post[t], _ = env.step(pre, actions, cap["gen"][t])
-        policy[t] = {"t_actions": t_actions, "latent_gt": latent, "s_actions": s_actions}
-        traj["obs"][t], traj["student_obs"][t] = pre.obs_queue, pre.obs_stud_queue
-        traj["t_actions"][t], traj["latent_gt"][t], traj["pcl"][t] = t_actions, latent, pre.pcl_queue
-    return {"post": post, "policy": policy, "traj": traj, "weights": w}
-
-
-def _update_dagger(cap, cfg, mix, dev, roll, fault):
-    s, d = cfg["student"], cfg["dagger"]
-    traj, w = roll["traj"], roll["weights"]
-    n = int(mix["envs"])
-    stud_rms = algo.rms_update(algo.rms_init((s["obs_dim"],), dev), traj["student_obs"])
-    pcl_rms = algo.rms_update(algo.rms_init((3,), dev), traj["pcl"].reshape(-1, 3))
-    b = traj["obs"].shape[0] * n
-    batch = {k: v.reshape((b,) + tuple(v.shape[2:])) for k, v in traj.items()}
-    batch["pcl"] = batch["pcl"].half().float()          # the reservoir keeps frames in float16
-    k_a = d["replay_size"] // 2 if d["replay_stratify"] else 0
-    k_b = d["replay_size"] - k_a
-    if cap["agent_steps"] != 0:
-        raise ValueError("the reference follows the first epoch, into an empty reservoir")
-    slot_b = algo.reservoir_rows(0, cap["res_u"].to(dev), k_b)
-    slot_a = algo.reservoir_rows(0, cap["res_u_a"].to(dev), k_a) if k_a else {}
-    rows = torch.stack(cap["rows"])
-    mbs = []
-    for j in range(N_ADAM):
-        drawn = rows[j // rows.shape[1]][j % rows.shape[1]].tolist()
-        idx = torch.tensor([slot_a[r] if r < k_a else slot_b[r - k_a] for r in drawn], device=dev)
-        mbs.append({k: v[idx] for k, v in batch.items()})
-    if fault == "half_batch":
-        mbs = [_half(m) for m in mbs]
-    wz = torch.ones(s["out_dim"], device=dev)
-    wz[2] = d["action_z_weight"]
-
-    def loss_of(wp, m):
-        pred = nets.student(wp, s, algo.rms_norm(stud_rms, m["student_obs"]), algo.rms_norm(pcl_rms, m["pcl"][:, -1]))
-        return torch.mean(wz * (pred - m["t_actions"]) ** 2)
-
-    return _adam_steps(w, loss_of, d["learning_rate"], d["grad_norm"], mbs)

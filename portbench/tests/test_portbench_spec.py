@@ -8,7 +8,8 @@ import shutil
 
 import pytest
 
-from portbench import run
+from portbench import run, systems
+from portbench.reference import kinds, nets
 
 ROOT = run.ROOT
 BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
@@ -38,6 +39,10 @@ def test_cell_resolves_its_files(w):
     for m in wanted:
         assert m["moves"] in end_to_end, "a per-layer metric moves an end-to-end metric its cell reports"
     assert w["chips"] == 1 and len(w["why"]) <= 200
+    # the configuration's algorithm and network kinds are found by name
+    assert callable(systems.kind(cfg).System) and callable(kinds.of(cfg).roll)
+    for block in (v for v in cfg.values() if isinstance(v, dict) and "kind" in v):
+        assert callable(nets.kind(block).forward)
 
 
 def test_names_units_and_keys():

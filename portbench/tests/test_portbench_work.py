@@ -3,6 +3,7 @@
 operations and bytes against the port's own functions."""
 
 import functools
+import sys
 
 import pytest
 import torch
@@ -23,11 +24,20 @@ def _uncounted(fn):
     return wrapped
 
 
-@pytest.mark.parametrize("name", ["teacher_ppo.state_4096", "student_dagger_r5.pcl_256"])
-def test_network_flops_equal_the_counted_matmuls(name, monkeypatch):
+SIZE = dict(envs=2, horizon=2, mini_epochs=2)
+# a configuration of test_portbench_kinds, a latent student whose forward and
+# backward run through the frozen teacher
+WRITTEN = {"student_dagger_latent.pcl_256": lambda tmp_path: tiny.written(tmp_path, tiny.latent_config(),
+                                                                          "pcl_256", **SIZE)}
+
+
+@pytest.mark.parametrize("name", ["teacher_ppo.state_4096", "student_dagger_r5.pcl_256", *WRITTEN])
+def test_network_flops_equal_the_counted_matmuls(name, monkeypatch, tmp_path):
     from isaacgyminsertion_tpu_torch.envs import insertion
 
-    _, _, cfg, mix = tiny.cell(name, envs=2, horizon=2, mini_epochs=2)
+    module = tiny.latent_kind()
+    monkeypatch.setitem(sys.modules, module.__name__, module)
+    _, _, cfg, mix = WRITTEN[name](tmp_path) if name in WRITTEN else tiny.cell(name, **SIZE)
     system = systems.build(cfg, mix, tiny.SEED, tiny.CPU, run.ROOT)
     system.epoch()
     monkeypatch.setattr(insertion, "step", _uncounted(insertion.step))

@@ -12,6 +12,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .reference import nets
+
 # the std of a unit normal truncated at ±2 (flax's lecun_normal rescales by it)
 _TRUNC_STD = 0.87962566103423978
 
@@ -22,49 +24,11 @@ class RMS(NamedTuple):
     count: torch.Tensor
 
 
-def _mlp_shapes(prefix: str, in_dim: int, units, layer="layers.{i}"):
-    dims = [in_dim, *units]
-    out = []
-    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-        out += [(f"{prefix}.{layer.format(i=i)}.weight", (b, a), a), (f"{prefix}.{layer.format(i=i)}.bias", (b,), 0)]
-    return out
-
-
-def actor_critic_shapes(p: dict) -> list:
-    """(name, shape, fan_in) of an `ActorCriticSplit` in the port's layout;
-    fan_in 0 marks a zero-initialized leaf."""
-    trunk = p["obs_dim"] + p["priv_units"][-1]
-    h = p["units"][-1]
-    return (_mlp_shapes("priv_mlp", p["priv_dim"], p["priv_units"])
-            + _mlp_shapes("actor_mlp", trunk, p["units"]) + _mlp_shapes("critic_mlp", trunk, p["units"])
-            + [("mu.weight", (p["num_actions"], h), h), ("mu.bias", (p["num_actions"],), 0),
-               ("value.weight", (1, h), h), ("value.bias", (1,), 0), ("log_std", (p["num_actions"],), 0)])
-
-
-def student_shapes(s: dict) -> list:
-    """(name, shape, fan_in) of the obs + point-cloud `MultiModalModel`; fan_in
-    0 marks a zero leaf, -1 a unit LayerNorm scale, -2 the positional
-    embedding (0.02 std)."""
-    e, d = s["embed_dim"], s["embed_dim"] // s["num_heads"]
-    hd = (s["num_heads"], d)
-    out = _mlp_shapes("obs_enc", s["obs_dim"], s["obs_units"] + [e], layer="Dense_{i}")
-    for name in ("pn_plug", "pn_socket")[:len(s["pcl_points"])]:
-        out += _mlp_shapes(name, 3, s["pointnet_units"] + [e], layer="Dense_{i}")
-    n = len(s["pcl_points"])
-    out += [("pcl_compressor.weight", (e, n * e), n * e), ("pcl_compressor.bias", (e,), 0),
-            ("decoder.pos_embed", (1, s["num_tokens"], e), -2)]
-    for i in range(s["decoder_layers"]):
-        a = f"decoder.SelfAttention_{i}"
-        for proj in ("query", "key", "value"):
-            out += [(f"{a}.{proj}.kernel", (e, *hd), e), (f"{a}.{proj}.bias", hd, 0)]
-        out += [(f"{a}.out.kernel", (*hd, e), e), (f"{a}.out.bias", (e,), 0)]
-        for j, (shape, fan) in ((2 * i, ((4 * e, e), e)), (2 * i + 1, ((e, 4 * e), 4 * e))):
-            out += [(f"decoder.LayerNorm_{j}.weight", (e,), -1), (f"decoder.LayerNorm_{j}.bias", (e,), 0),
-                    (f"decoder.Dense_{j}.weight", shape, fan), (f"decoder.Dense_{j}.bias", (shape[0],), 0)]
-    out += _mlp_shapes("decoder.MLP_0", s["num_tokens"] * e, s["head_units"], layer="Dense_{i}")
-    h = s["head_units"][-1]
-    out += [("latent_head.weight", (s["out_dim"], h), h), ("latent_head.bias", (s["out_dim"],), 0)]
-    return out
+def layout(block: dict) -> list:
+    """(name, shape, fan_in) of a network block's weights in draw order, from
+    its kind (`reference/nets/<kind>.py`); fan_in 0 marks a zero leaf, -1 a
+    unit LayerNorm scale, -2 the positional embedding (0.02 std)."""
+    return nets.kind(block).shapes(block)
 
 
 def make(shapes: list, seed: int, device) -> "OrderedDict[str, torch.Tensor]":
