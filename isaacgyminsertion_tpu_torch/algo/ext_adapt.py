@@ -299,13 +299,17 @@ class Reservoir:
     def _alloc(self, batch: dict):
         """One buffer per key, [capacity, ...]; each key filled with its own
         small value, as the reference fills them (rows are drawn below the
-        fill count, so only an empty A's first row is ever read unwritten)."""
+        fill count, so only an empty A's first row is ever read unwritten).
+        The frame buffers' bytes go to the counter
+        `dagger.reservoir_frame_bytes`."""
         k = self.k_a + self.k_b
         self.rows = {}
         for i, (key, v) in enumerate(batch.items()):
             dtype = torch.float16 if key in FRAME_KEYS and v.dtype == torch.float32 else v.dtype
             self.rows[key] = torch.full((k,) + tuple(v.shape[1:]), (i + 1) * 1e-6, dtype=dtype,
                                         device=v.device)
+        profiling.count("dagger.reservoir_frame_bytes", sum(buf.nbytes for key, buf in self.rows.items()
+                                                            if key in FRAME_KEYS))
 
     def _scatter(self, batch: dict, offset: int, cap: int, cursor: int, u: torch.Tensor):
         slots, rows = _last_per_slot(reservoir_slots(cursor, u, cap), cap)
@@ -383,9 +387,11 @@ class TrainEpoch:
         obs, stud_obs = env_state.obs_queue, env_state.obs_stud_queue
         priv = insertion.priv_info_of(self.cfg_task, self.model, env_state)
         with profiling.span("rollout.policy"):
-            t_actions, latent_gt = self.teacher_act(obs, priv)
-            prev_out = _prev_out_of(env_state, self.cfg_task)._replace(priv_info=priv)
-            s_actions, _ = self.student_act(state.student(), stud_obs, prev_out)
+            with profiling.span("rollout.policy.teacher"):
+                t_actions, latent_gt = self.teacher_act(obs, priv)
+            with profiling.span("rollout.policy.student"):
+                prev_out = _prev_out_of(env_state, self.cfg_task)._replace(priv_info=priv)
+                s_actions, _ = self.student_act(state.student(), stud_obs, prev_out)
         beta = self.beta(agent_steps)
         if not c.use_tactile and agent_steps < c.teacher_only_steps:
             mixed = t_actions          # the teacher-only window
